@@ -41,6 +41,9 @@ def pytest_configure(config):
         "are about half the suite wall-clock; -m 'not slow' is the "
         "~5-minute developer loop, CI always runs everything)")
     config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the port's CUDA kernels); "
+        "skips without one")
+    config.addinivalue_line(
         "markers", "multiproc: real jax.process_count()>1 runs (launches "
         "2-4 worker OS processes with a localhost coordinator and Gloo "
         "CPU collectives; part of the default CPU tier, also selectable "
