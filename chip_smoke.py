@@ -6,16 +6,28 @@
 Phases, each printing one line (or a few) and failing hard:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. build the CUDA kernels (ops/csrc/fused_step.cu) with nvcc;
-3. each kernel (A in every mode, B, C) against its plain torch.fft version
-   at the main path's shapes (16 probes, 1024^2, complex64), plus one
-   depth-recording chain: max|d|/max|ref| <= 1e-4 and the magnitude
-   residual sum((|F|-|D|)^2)/sum(|F|^2) <= 1e-6;
-4. the main path: an hBN monolayer filling a 102.35 A box (3,680 atoms,
+2. build the CUDA kernels (every ops/csrc/*.cu, one nvcc each, together);
+3. kernels A (every mode), B and C against their plain torch.fft versions
+   at 16 probes x 1024^2 complex64, plus one depth-recording chain:
+   max|d|/max|ref| <= 1e-4 and the magnitude residual
+   sum((|F|-|D|)^2)/sum(|F|^2) <= 1e-6;
+4. the mixed-radix kernels the same way: K4 (every mode) and K5 at
+   16 x 1023^2, K6 (the resident slice loop) at 1 x 1023^2 and 1 x 1024^2,
+   exit wave and k space, and one depth-recording chain each;
+5. STEM at 1024^2: an hBN monolayer filling a 102.35 A box (3,680 atoms,
    10 thermal frames) through MultisliceCalculator(device="cuda") at
-   1024^2 x 16 probes x 14 slices; launch counts, the plain-path residual
-   on frame 0, TACAW and HAADF outputs, ms/frame both ways;
-5. a JSON line per kernel, the nvidia-smi line, and the final JSON line.
+   16 probes x 14 slices; A/B/C launch counts, the plain-path residual on
+   frame 0, TACAW and HAADF outputs, ms/frame both ways;
+6. the README quick start at the reference-natural grid: an hBN LAMMPS
+   dump written with write_lammps_dump (102.25 A box, 100 frames), read by
+   TrajectoryLoader, a plane wave (aperture=0.0) at 1023^2: one K6 launch
+   a frame and no other kernel, the plain-path residual on frame 0, TACAW
+   spectrum and diffraction; ms/frame for K6, the K4/K5 chain and plain;
+7. the same with fast_grid=True (1024^2, 10 frames): K6's radix-16
+   instantiation; ms/frame for K6, the A/B/C chain and plain;
+8. 16-probe STEM on the 1023^2 box (10 frames): K4 and K5 launch nz and
+   nz - 1 times a frame, HAADF finite and positive;
+9. a JSON line per kernel, the nvidia-smi line, and the final JSON line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository around it.
@@ -24,15 +36,33 @@ repository around it.
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 MAX_REL = 1e-4
 MAX_RESIDUAL = 1e-6
 N_PROBES, N_GRID, N_SLICES, N_FRAMES = 16, 1024, 14, 10
-SOURCE = "pyslice_tpu_torch/ops/csrc/fused_step.cu"
-REPLACES = {"a": "pyslice_tpu/ops/fused_step.py:472",
-            "b": "pyslice_tpu/ops/fused_step.py:503",
-            "c": "pyslice_tpu/ops/fused_step.py:423"}
+N_ODD = 1023                 # int(102.25 / 0.1) + 1
+QUICK_FRAMES = 100           # BASELINE.json config 2: 100 frames, 1 probe
+CSRC = "pyslice_tpu_torch/ops/csrc/"
+# kernel -> (name, source, the TPU kernel it replaces)
+KERNELS = {
+    "a": ("fused_step.row_pass (A)", "fused_step.cu",
+          "pyslice_tpu/ops/fused_step.py:472"),
+    "b": ("fused_step.col_pass (B)", "fused_step.cu",
+          "pyslice_tpu/ops/fused_step.py:503"),
+    "c": ("fused_step.kconvert (C)", "fused_step.cu",
+          "pyslice_tpu/ops/fused_step.py:423"),
+    "k4": ("fused_step_odd.row_pass_mr (K4)", "fused_step_odd.cu",
+           "pyslice_tpu/ops/fused_step_odd.py:272"),
+    "k5": ("fused_step_odd.col_pass_mr (K5)", "fused_step_odd.cu",
+           "pyslice_tpu/ops/fused_step_odd.py:304"),
+    "k6_mixed": ("fused_step_resident.resident_loop (K6, mixed-radix)",
+                 "resident.cu",
+                 "pyslice_tpu/ops/fused_step_odd_resident.py:369"),
+    "k6_pow2": ("fused_step_resident.resident_loop (K6, radix-16)",
+                "resident.cu", "pyslice_tpu/ops/fused_step_resident.py:250"),
+}
 
 
 def require(cond, what):
@@ -81,8 +111,8 @@ def card_line():
 
 
 def kernel_phase(dev, P=N_PROBES, n=N_GRID, nz=N_SLICES):
-    """Phase 3: every kernel against its plain version. Returns the JSON
-    records (without launch counts) keyed by kernel."""
+    """Phase 3: kernels A, B, C against their plain versions. Returns the
+    JSON records (without launch counts) keyed by kernel."""
     import numpy as np
     import torch
     from pyslice_tpu_torch.core.constants import (interaction_parameter,
@@ -127,16 +157,96 @@ def kernel_phase(dev, P=N_PROBES, n=N_GRID, nz=N_SLICES):
         "c": (cuda_ms(lambda: fs.kconvert(buf)),
               cuda_ms(lambda: fs._plain_kconvert(buf))),
     }
-    names = {"a": "fused_step.row_pass (A)", "b": "fused_step.col_pass (B)",
-             "c": "fused_step.kconvert (C)"}
+    return records_for(errs, timings, f"{P}x{n}^2")
+
+
+def records_for(errs, timings, shape):
+    """JSON records (without launch counts) of the kernels in ``errs``."""
     records = {}
-    for k in ("a", "b", "c"):
+    for k, err in errs.items():
+        name, src, replaces = KERNELS[k]
         ms, plain_ms = timings[k]
-        print(f"  {names[k]} at {P}x{n}^2: {ms:.4f} ms, plain torch.fft "
+        print(f"  {name} at {shape}: {ms:.4f} ms, plain torch.fft "
               f"{plain_ms:.4f} ms")
-        records[k] = {"name": names[k], "route": "cuda", "source": SOURCE,
-                      "replaces": REPLACES[k], "max_abs_err": errs[k],
+        records[k] = {"name": name, "route": "cuda", "source": CSRC + src,
+                      "replaces": replaces, "max_abs_err": err,
                       "ms": ms, "plain_ms": plain_ms}
+    return records
+
+
+def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES):
+    """Phase 4: K4, K5 at P x n^2 and K6 at 1 x n^2 and 1 x 1024^2 against
+    their plain versions. Returns the JSON records keyed by kernel."""
+    import numpy as np
+    import torch
+    from pyslice_tpu_torch.core.constants import (interaction_parameter,
+                                                  wavelength)
+    from pyslice_tpu_torch.ops import fused_step as fs
+    from pyslice_tpu_torch.ops import fused_step_odd as fo
+    from pyslice_tpu_torch.ops import fused_step_odd_resident as fodr
+    from pyslice_tpu_torch.ops import fused_step_resident as fr
+
+    lam, sigma = wavelength(100e3), interaction_parameter(100e3)
+    g = torch.Generator(device=dev).manual_seed(1)
+    psi = torch.randn((P, n, n), dtype=torch.complex64, device=dev,
+                      generator=g)
+    sv = torch.randn((n, n), device=dev, generator=g) * 20.0
+    t = torch.complex(torch.cos(sv), torch.sin(sv))
+    kxs = np.fft.fftfreq(n, 0.1)
+    prop = fs.fresnel_plane(kxs, kxs, lam, 0.4846, device=dev)
+    errs = {"k4": 0.0, "k5": 0.0, "k6_mixed": 0.0, "k6_pow2": 0.0}
+    for mode in fs.ROW_MODES:
+        for label, tt in (("planes", t), ("phase", sv)):
+            errs["k4"] = max(errs["k4"], check(
+                f"K4 {mode:5s} {label:6s}", fo.row_pass_mr(mode, psi, tt),
+                fs._plain_row_pass(mode, psi, tt)))
+    errs["k5"] = check("K5", fo.col_pass_mr(psi, prop),
+                       fs._plain_col_pass(psi, prop))
+    v = torch.randn((nz, n, n), device=dev, generator=g) * 50.0
+    kw = dict(sigma=sigma, lam=lam, dz=0.4846, record_layers=(3, nz - 1))
+    check(f"K4/K5 chain record_layers=(3, {nz - 1})",
+          fo.fused_multislice_odd(psi, v, kxs, kxs, **kw),
+          fs.fused_multislice_plain(psi, v, kxs, kxs, **kw))
+    del v
+
+    loops = {}
+    for key, m, entry in (("k6_mixed", n, fodr.fused_multislice_odd_resident),
+                           ("k6_pow2", 1024, fr.fused_multislice_resident)):
+        ks = np.fft.fftfreq(m, 0.1)
+        p1 = torch.randn((1, m, m), dtype=torch.complex64, device=dev,
+                         generator=g)
+        v = torch.randn((nz, m, m), device=dev, generator=g) * 50.0
+        tstack = fs.transmission_stack(sigma, v)
+        pm = fs.fresnel_plane(ks, ks, lam, 0.4846, device=dev)
+        for kspace in (False, True):
+            errs[key] = max(errs[key], check(
+                f"K6 1x{m}^2x{nz} kspace={kspace!s:5s}",
+                fr.resident_loop(p1, tstack, pm, kspace),
+                fr._plain_resident_loop(p1, tstack, pm, kspace)))
+        print(f"    K6 grid {fr.last_launch}")
+        check(f"K6 1x{m}^2 record_layers=(3, {nz - 1})",
+              entry(p1, v, ks, ks, **kw),
+              fs.fused_multislice_plain(p1, v, ks, ks, **kw))
+        loops[key] = (p1, tstack, pm)
+
+    buf = psi.clone()
+    timings = {
+        "k4": (cuda_ms(lambda: fo.row_pass_mr("mid", buf, t, out=buf)),
+               cuda_ms(lambda: fs._plain_row_pass("mid", buf, t))),
+        "k5": (cuda_ms(lambda: fo.col_pass_mr(buf, prop, out=buf)),
+               cuda_ms(lambda: fs._plain_col_pass(buf, prop))),
+    }
+    for key, (p1, tstack, pm) in loops.items():
+        timings[key] = (
+            cuda_ms(lambda: fr.resident_loop(p1, tstack, pm), reps=10),
+            cuda_ms(lambda: fr._plain_resident_loop(p1, tstack, pm),
+                    reps=10))
+    records = records_for({k: errs[k] for k in ("k4", "k5")}, timings,
+                          f"{P}x{n}^2")
+    records.update(records_for(
+        {"k6_mixed": errs["k6_mixed"]}, timings, f"1x{n}^2x{nz} slices"))
+    records.update(records_for(
+        {"k6_pow2": errs["k6_pow2"]}, timings, f"1x1024^2x{nz} slices"))
     return records
 
 
@@ -164,12 +274,10 @@ def hbn_box(lx, n_frames, seed=0, lz=6.784):
 
 
 def slice_phase(dev, card, lx=102.35, n_frames=N_FRAMES):
-    """Phase 4: the main path. Returns the launch counts of the run."""
+    """Phase 5: STEM at 1024^2. Returns the launch counts of the run."""
     import numpy as np
     import torch
     import pyslice_tpu_torch as pt
-    from pyslice_tpu_torch.engine.pipeline import frame_exit_waves
-    from pyslice_tpu_torch.ops import config as ops_config
     from pyslice_tpu_torch.ops import fused_step as fs
 
     traj = hbn_box(lx, n_frames)
@@ -181,18 +289,10 @@ def slice_phase(dev, card, lx=102.35, n_frames=N_FRAMES):
     print(f"  {traj.n_atoms} atoms, {n_frames} frames, grid "
           f"{calc.nx}x{calc.ny}x{calc.nz}, {calc.n_probes} probes")
 
-    for k in fs.launches:
-        fs.launches[k] = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    wf = calc.run(progress=False)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    counts = dict(fs.launches)
-    want = {"a": n_frames * calc.nz, "b": n_frames * (calc.nz - 1),
-            "c": n_frames}
-    print(f"  launches {counts}, expected {want}")
-    require(counts == want, "the main path did not run every kernel")
+    want = dict.fromkeys(fs.launches, 0)
+    want.update(a=n_frames * calc.nz, b=n_frames * (calc.nz - 1),
+                c=n_frames)
+    wf, counts, run_s = counted_run(calc, want)
     w = wf.wavefunction_data
     require(tuple(w.shape) == (calc.n_probes, n_frames, calc.nx, calc.ny, 1)
             and w.is_cuda and w.dtype == torch.complex64,
@@ -200,36 +300,9 @@ def slice_phase(dev, card, lx=102.35, n_frames=N_FRAMES):
     require(bool(torch.isfinite(torch.view_as_real(w)).all()),
             "non-finite exit waves")
 
-    probes = calc._probes_array()
-    pos0 = traj.positions[0]
-
-    def frame(mode):
-        ops_config.fused_multislice = mode
-        try:
-            out = frame_exit_waves(pos0, probes, calc.spec)
-            torch.cuda.synchronize()
-            return out
-        finally:
-            ops_config.fused_multislice = "auto"
-
-    plain0 = frame("off")
-    _, rel, res = errors(w[:, 0], plain0)
-    print(f"  frame 0, kernels vs plain path: max|d|/max|ref| {rel:.3e}  "
-          f"residual {res:.3e}")
-    require(res <= MAX_RESIDUAL, "kernel path disagrees with plain path")
-
-    # ms/frame, taken in turns (plain, kernel, kernel, plain)
-    times = {"off": [], "auto": []}
-    for mode in ("off", "auto", "auto", "off"):
-        t0 = time.perf_counter()
-        frame(mode)
-        times[mode].append(1e3 * (time.perf_counter() - t0))
-    k_ms, p_ms = min(times["auto"]), min(times["off"])
-    print(f"  ms/frame ({calc.nx}x{calc.ny} x {calc.n_probes} probes x "
-          f"{calc.nz} slices, rasterizer included): kernels {k_ms:.2f}, "
-          f"plain torch.fft {p_ms:.2f}; "
-          f"run() {1e3 * run_s / n_frames:.2f} ms/frame over {n_frames} "
-          f"frames; card {card}")
+    check_frame0(calc, traj, w)
+    frame_times(calc, traj, card, run_s, n_frames,
+                {"kernels": ("auto", "auto"), "plain torch.fft": ("off",)})
 
     tac = pt.TACAWData(wf)
     spec = tac.spectrum()
@@ -241,6 +314,158 @@ def slice_phase(dev, card, lx=102.35, n_frames=N_FRAMES):
             "TACAW spectrum")
     require(diff.shape == (calc.nx, calc.ny) and np.isfinite(diff).all(),
             "TACAW diffraction")
+    require(adf.shape == (4, 4) and np.isfinite(adf).all() and adf.min() > 0,
+            "HAADF image")
+    return counts
+
+
+def counted_run(calc, want):
+    """calc.run() with every launch count set to 0 just before and read
+    just after; fails unless the counts are ``want``. Returns (WFData,
+    counts, seconds)."""
+    import torch
+    from pyslice_tpu_torch.ops import fused_step as fs
+    for k in fs.launches:
+        fs.launches[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wf = calc.run(progress=False)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = dict(fs.launches)
+    print(f"  launches {counts}, expected {want}")
+    require(counts == want, "the path did not run exactly its kernels")
+    return wf, counts, run_s
+
+
+def frame_at(calc, traj, fused="auto", resident="auto"):
+    """Frame 0's k-space exit waves under the given dispatch flags."""
+    import torch
+    from pyslice_tpu_torch.engine.pipeline import frame_exit_waves
+    from pyslice_tpu_torch.ops import config as ops_config
+    ops_config.fused_multislice = fused
+    ops_config.resident_multislice = resident
+    try:
+        out = frame_exit_waves(traj.positions[0], calc._probes_array(),
+                               calc.spec)
+        torch.cuda.synchronize()
+        return out
+    finally:
+        ops_config.fused_multislice = "auto"
+        ops_config.resident_multislice = "auto"
+
+
+def check_frame0(calc, traj, w):
+    _, rel, res = errors(w[:, 0], frame_at(calc, traj, "off"))
+    print(f"  frame 0, kernels vs plain path: max|d|/max|ref| {rel:.3e}  "
+          f"residual {res:.3e}")
+    require(res <= MAX_RESIDUAL, "kernel path disagrees with plain path")
+
+
+def frame_times(calc, traj, card, run_s, n_frames, ways, rounds=5):
+    """Median ms/frame of each way (label -> dispatch flags) over
+    ``rounds`` rounds taken in turns, the order reversed every other
+    round."""
+    import numpy as np
+    times = {label: [] for label in ways}
+    for r in range(rounds):
+        for label in (list(ways) if r % 2 == 0 else list(ways)[::-1]):
+            t0 = time.perf_counter()
+            frame_at(calc, traj, *ways[label])
+            times[label].append(1e3 * (time.perf_counter() - t0))
+    med = {label: float(np.median(ts)) for label, ts in times.items()}
+    parts = ", ".join(f"{label} {ms:.2f}" for label, ms in med.items())
+    print(f"  ms/frame, median of {rounds} ({calc.nx}x{calc.ny} x "
+          f"{calc.n_probes} probes x {calc.nz} slices, rasterizer included): "
+          f"{parts}; run() {1e3 * run_s / n_frames:.2f} ms/frame over "
+          f"{n_frames} frames; card {card}")
+    return med
+
+
+def quick_start_phase(dev, card, tmp, n_frames=QUICK_FRAMES, lx=102.25,
+                      fast_grid=False, grid=N_ODD):
+    """Phases 6 and 7: the README quick start. An hBN dump written with
+    write_lammps_dump, TrajectoryLoader, a plane wave through
+    MultisliceCalculator; one K6 launch a frame and nothing else. Returns
+    the K6 launch count and the trajectory."""
+    import numpy as np
+    import torch
+    import pyslice_tpu_torch as pt
+    from pyslice_tpu_torch.io.lammps import write_lammps_dump
+    from pyslice_tpu_torch.ops import fused_step as fs
+    from pyslice_tpu_torch.ops import fused_step_resident as fr
+
+    dump = f"{tmp}/hbn_{n_frames}.lammpstrj"
+    src = hbn_box(lx, n_frames)
+    t0 = time.perf_counter()
+    write_lammps_dump(dump, np.where(src.atom_types == 5, 1, 2),
+                      src.positions, src.velocities, src.box_matrix)
+    traj = pt.TrajectoryLoader(dump, timestep=0.005,
+                               atom_mapping={1: "B", 2: "N"}).load()
+    print(f"  wrote and loaded {dump.rsplit('/', 1)[-1]}: {traj.n_atoms} "
+          f"atoms x {traj.n_frames} frames in "
+          f"{time.perf_counter() - t0:.1f} s")
+    require(traj.n_frames == n_frames and set(traj.atom_types) == {5, 7},
+            "TrajectoryLoader output")
+    calc = pt.MultisliceCalculator(device=dev)
+    calc.setup(traj, aperture=0.0, voltage_eV=100e3, sampling=0.1,
+               slice_thickness=0.5, device_output=True, use_cache=False,
+               fast_grid=fast_grid)
+    print(f"  grid {calc.nx}x{calc.ny}x{calc.nz}, {calc.n_probes} probe")
+    require((calc.nx, calc.ny, calc.n_probes) == (grid, grid, 1),
+            f"expected a 1 x {grid}^2 plane wave")
+    want = dict.fromkeys(fs.launches, 0)
+    want["k6"] = n_frames
+    wf, counts, run_s = counted_run(calc, want)
+    engine = "pow2" if fast_grid else "mixed"
+    print(f"  K6 grid {fr.last_launch}")
+    require(fr.last_launch["engine"] == engine, f"K6 ran not the {engine} "
+            "engine")
+    w = wf.wavefunction_data
+    require(tuple(w.shape) == (1, n_frames, grid, grid, 1)
+            and bool(torch.isfinite(torch.view_as_real(w)).all()),
+            f"WFData {tuple(w.shape)}")
+    check_frame0(calc, traj, w)
+    chain = "A/B/C chain" if fast_grid else "K4/K5 chain"
+    frame_times(calc, traj, card, run_s, n_frames,
+                {"K6": ("auto", "auto"), chain: ("auto", "off"),
+                 "plain torch.fft": ("off", "auto")})
+    tac = pt.TACAWData(wf)
+    spec, diff = tac.spectrum(), tac.diffraction()
+    print(f"  TACAW spectrum {spec.shape}, diffraction {diff.shape}")
+    require(spec.shape == (n_frames,) and np.isfinite(spec).all(),
+            "TACAW spectrum")
+    require(diff.shape == (grid, grid) and np.isfinite(diff).all(),
+            "TACAW diffraction")
+    return counts["k6"], traj
+
+
+def odd_stem_phase(dev, card, traj, n_frames=N_FRAMES):
+    """Phase 8: 16-probe STEM on the 1023^2 box through the K4/K5 chain.
+    Returns the launch counts."""
+    import numpy as np
+    import pyslice_tpu_torch as pt
+    from pyslice_tpu_torch.ops import fused_step as fs
+
+    traj = traj.slice_timesteps(list(range(n_frames)))
+    calc = pt.MultisliceCalculator(device=dev)
+    calc.setup(traj, aperture=30.0, voltage_eV=100e3, sampling=0.1,
+               slice_thickness=0.5,
+               probe_positions=pt.probe_grid([10, 90], [10, 90], 4, 4),
+               device_output=True, use_cache=False)
+    print(f"  {traj.n_atoms} atoms, {traj.n_frames} frames, grid "
+          f"{calc.nx}x{calc.ny}x{calc.nz}, {calc.n_probes} probes")
+    require((calc.nx, calc.ny, calc.n_probes) == (N_ODD, N_ODD, N_PROBES),
+            "expected 16 probes at 1023^2")
+    want = dict.fromkeys(fs.launches, 0)
+    want.update(k4=traj.n_frames * calc.nz, k5=traj.n_frames * (calc.nz - 1))
+    wf, counts, run_s = counted_run(calc, want)
+    check_frame0(calc, traj, wf.wavefunction_data)
+    frame_times(calc, traj, card, run_s, traj.n_frames,
+                {"K4/K5 chain": ("auto", "auto"),
+                 "plain torch.fft": ("off", "auto")})
+    adf = pt.HAADFData(wf).calculateADF(45)
+    print(f"  HAADF {adf.shape}; ADF range {adf.min():.4e}..{adf.max():.4e}")
     require(adf.shape == (4, 4) and np.isfinite(adf).all() and adf.min() > 0,
             "HAADF image")
     return counts
@@ -259,18 +484,33 @@ def main():
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     b = fs.build()
-    print(f"[2] built {b.path.name} in {b.seconds:.1f} s")
+    print(f"[2] built {', '.join(p.name for p in b.paths.values())} in "
+          f"{b.seconds:.1f} s")
     for line in b.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or line.startswith("---"):
             print(f"    {line.strip()}")
 
-    print(f"[3] kernels vs plain versions at {N_PROBES} x {N_GRID}^2:")
+    print(f"[3] kernels A, B, C vs plain versions at {N_PROBES} x "
+          f"{N_GRID}^2:")
     records = kernel_phase(dev)
-    print("[4] main path:")
+    print(f"[4] kernels K4, K5 at {N_PROBES} x {N_ODD}^2, K6 at 1 x {N_ODD}^2 "
+          "and 1 x 1024^2 vs plain versions:")
+    records.update(mr_kernel_phase(dev))
+    print("[5] STEM at 1024^2 (kernels A, B, C):")
     counts = slice_phase(dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        print(f"[6] README quick start, plane wave at {N_ODD}^2 (K6):")
+        k6_mixed, traj = quick_start_phase(dev, card, tmp)
+        print("[7] the same with fast_grid=True, 1024^2 (K6):")
+        k6_pow2, _ = quick_start_phase(dev, card, tmp, n_frames=N_FRAMES,
+                                       fast_grid=True, grid=1024)
+    print(f"[8] STEM at {N_ODD}^2 (kernels K4, K5):")
+    odd = odd_stem_phase(dev, card, traj)
+    counts.update(k4=odd["k4"], k5=odd["k5"], k6_mixed=k6_mixed,
+                  k6_pow2=k6_pow2)
     for k, rec in records.items():
         rec["launches"] = counts[k]
-    print(json.dumps({"kernels": [records[k] for k in ("a", "b", "c")]}))
+    print(json.dumps({"kernels": [records[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

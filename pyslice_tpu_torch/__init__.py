@@ -5,7 +5,8 @@ trajectories): trajectory -> Kirkland projected potentials -> multislice
 probe propagation -> k-space exit waves per (probe, frame) -> time-axis FFT
 -> phonon-resolved spectra and diffraction, HAADF-STEM. Each module mirrors
 its counterpart in ``pyslice_tpu``; the slice step's hot loop runs through
-hand-written CUDA kernels (``ops/csrc/fused_step.cu``) on an NVIDIA card.
+hand-written CUDA kernels (``ops/csrc/*.cu``) on an NVIDIA card. Ingest:
+``TrajectoryLoader`` (LAMMPS, XYZ, CIF).
 
 The device is always explicit (``MultisliceCalculator(device="cuda")``).
 Importing the package switches TF32 off for float32 matrix products
@@ -18,6 +19,7 @@ from .core.dtypes import DOUBLE, SINGLE, Precision, get_precision
 from .core.grids import (Grid, grid_from_box, grid_from_box_matrix,
                          grid_from_trajectory, gridFromTrajectory)
 from .data.trajectory import Trajectory
+from .io.loader import TrajectoryLoader
 from .physics.kirkland import element_to_z, form_factor, z_to_element
 from .physics.potential import RasterizerPlan, make_plan, rasterize
 from .physics.probe import Probe, create_batched_probes, probe_grid, shift_probes
@@ -32,7 +34,7 @@ __all__ = [
     "interaction_parameter", "m_effective", "wavelength",
     "DOUBLE", "SINGLE", "Precision", "get_precision",
     "Grid", "grid_from_box", "grid_from_box_matrix", "grid_from_trajectory",
-    "gridFromTrajectory", "Trajectory", "element_to_z", "form_factor",
+    "gridFromTrajectory", "Trajectory", "TrajectoryLoader", "element_to_z", "form_factor",
     "z_to_element", "RasterizerPlan", "make_plan", "rasterize", "Probe",
     "create_batched_probes", "probe_grid", "shift_probes", "multislice",
     "MultisliceCalculator", "WFData", "TACAWData", "HAADFData",

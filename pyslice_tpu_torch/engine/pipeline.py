@@ -17,7 +17,7 @@ import torch
 from ..core.constants import interaction_parameter, wavelength as _wavelength
 from ..core.dtypes import Precision, get_precision
 from ..core.grids import Grid
-from ..ops import fused_step
+from ..ops import fused_step, fused_step_odd_resident, fused_step_resident
 from ..physics.potential import RasterizerPlan, plan_tensors, rasterize
 from ..physics.propagate import (bandwidth_kmax2, multislice, pick_fused,
                                  tilt_tangents)
@@ -79,20 +79,31 @@ def frame_exit_waves(positions, probes: torch.Tensor,
     return exit_waves_from_potential(v, probes, spec)
 
 
+# The families whose kernels fuse the k-space conversion (as in the JAX
+# package's exit_waves_from_potential); the odd chain has none.
+KSPACE_ENTRIES = {
+    "resident": fused_step_resident.fused_multislice_kspace_resident,
+    "aligned": fused_step.fused_multislice_kspace,
+    "odd_resident":
+        fused_step_odd_resident.fused_multislice_kspace_odd_resident,
+}
+
+
 def exit_waves_from_potential(v: torch.Tensor, probes: torch.Tensor,
                               spec: SimSpec) -> torch.Tensor:
     """frame_exit_waves given the rasterized (nz, nx, ny) potential ``v``.
 
-    An eligible batch (see ``physics.propagate``) without depth recording
-    takes the fused chain with the k-space conversion in its last kernels
-    (``ops.fused_step.fused_multislice_kspace``); otherwise ``multislice``
-    then fftshift(fft2(.)). The k axes come from the plan's device
-    constants, so a frame makes no host-to-device copy here."""
+    An eligible batch (see ``physics.propagate.fused_family``) without
+    depth recording takes its family's kernels with the k-space conversion
+    fused in (``KSPACE_ENTRIES``); otherwise ``multislice`` (which runs the
+    odd K4/K5 chain where that family fits) then fftshift(fft2(.)) by
+    torch.fft. The k axes come from the plan's device constants, so a frame
+    makes no host-to-device copy here."""
     c = plan_tensors(spec.plan, spec.precision, probes.device)
     kxs, kys = c["kxs"], c["kys"]
-    if (spec.record_layers is None
-            and pick_fused(probes, spec.precision) == "aligned"):
-        k = fused_step.fused_multislice_kspace(
+    family = pick_fused(probes, spec.precision, v.shape[0])
+    if spec.record_layers is None and family in KSPACE_ENTRIES:
+        k = KSPACE_ENTRIES[family](
             probes, v, kxs, kys,
             sigma=interaction_parameter(spec.eV), lam=spec.lam, dz=spec.dz,
             ksq=spec.ksq2d, kmax2=spec.kmax2, tantilt=spec.tantilt)

@@ -1,21 +1,36 @@
-"""Hand-written CUDA kernels for the slice step, and their dispatch flag.
+"""Hand-written CUDA kernels for the slice step, and their dispatch flags.
 
 ``config.fused_multislice``, the counterpart of the JAX flag of the same
 name: "auto" (default — use the fused CUDA kernels for an eligible problem
 on the card), "on" (require them; error if the problem is not eligible),
-or "off" (always the plain ``torch.fft`` path, for A/B checks). It is read
-at every call.
+or "off" (always the plain ``torch.fft`` path, for A/B checks).
+``config.resident_multislice``: "auto" (default — the one-launch slice
+loop K6 where ``physics.propagate.fused_family`` prefers it) or "off"
+(always the two-pass chains). Both are read at every call.
 
 Kernel map (``pyslice_tpu/ops`` Pallas kernel -> this package):
 
 * ``fused_step._kernel_a`` / ``_kernel_b`` / ``_kernel_c`` ->
   ``fused_step.row_pass`` / ``col_pass`` / ``kconvert``, CUDA C++ in
-  ``csrc/fused_step.cu``.
+  ``csrc/fused_step.cu`` (power-of-two axes, radix-16 engine).
 * ``transmit._kernel`` (psi * exp(i sigma V), cos/sin in the kernel) is
   kernel A's ``only`` mode with the phase plane:
   ``row_pass("only", psi, sigma * V)``. It has no kernel of its own.
+* ``fused_step_odd._kernel_a`` / ``_kernel_b`` -> K4 / K5,
+  ``fused_step_odd.row_pass_mr`` / ``col_pass_mr``, in
+  ``csrc/fused_step_odd.cu`` (mixed-radix Stockham engine,
+  ``csrc/fft_mixed.cuh``).
+* ``fused_step_resident._kernel_resident`` (#5) and
+  ``fused_step_odd_resident._kernel`` (#8) -> one kernel, K6,
+  ``fused_step_resident.resident_loop`` in ``csrc/resident.cu``, templated
+  on the engine: radix-16 for power-of-two grids (#5), Stockham otherwise
+  (#8). Entry points:
+  ``fused_step_resident.fused_multislice[_kspace]_resident`` and
+  ``fused_step_odd_resident.fused_multislice[_kspace]_odd_resident``.
+* ``fused_step_adjoint`` (#9, #10) is not ported yet.
 """
 
 
 class config:
     fused_multislice = "auto"
+    resident_multislice = "auto"

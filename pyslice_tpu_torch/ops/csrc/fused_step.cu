@@ -6,13 +6,9 @@
 //   C  k conversion <- _kernel_c via _call_c  (pallas_call at fused_step.py:423)
 //
 // Layout: the wave is (P, nx, ny) complex64, interleaved (float2), in its
-// natural order at every kernel boundary. Each 1-D transform is an in-place
-// FFT in shared memory, run as passes of up to four radix-2 stages held in
-// registers (radix 16: a 1024-point transform is three passes and barriers):
-// the forward is decimation in frequency (natural in, bit-reversed out) and
-// the inverse decimation in time (bit-reversed in, natural out). Shared
-// memory rows are padded by one slot every 32, so the passes' strided
-// accesses spread over the banks. The bit reversal costs no data movement:
+// natural order at every kernel boundary. The FFT engine (fft_pow2.cuh)
+// runs radix-16 passes in shared memory: the forward leaves bit-reversed
+// order and the inverse consumes it. The bit reversal costs no data movement:
 // A reads or writes its row through bit-reversed shared-memory addresses,
 // B multiplies the Fresnel plane at the bit-reversed kx row between its
 // forward and inverse, and C folds both the bit reversal and the fftshift
@@ -33,138 +29,9 @@
 // Plain C interface for ctypes: each function launches on the given stream
 // and returns cudaGetLastError() as an int.
 
-#include <cuda_runtime.h>
+#include "fft_pow2.cuh"
 
 namespace {
-
-enum RowMode { kFirst = 0, kMid = 1, kLast = 2, kOnly = 3 };
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// a * conj(b)
-__device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
-  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
-}
-
-__device__ __forceinline__ float2 cscale(float2 a, float s) {
-  return make_float2(a.x * s, a.y * s);
-}
-
-__device__ __forceinline__ int bit_reverse(int i, int logn) {
-  return logn == 0 ? 0 : (int)(__brev((unsigned)i) >> (32 - logn));
-}
-
-// Shared-memory slot of tile row i: one pad slot every 32 rows, so the
-// strided accesses of the register passes below do not pile onto one bank.
-__device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
-
-// Up to kMaxLogRadix consecutive radix-2 stages in registers. Work item b
-// (column c = b mod 2^logc, group g) holds the R = 2^LR tile rows
-// e0 + j*2^lo, j < R, runs stages lo .. lo+LR-1 on them (largest first for
-// the forward, DIF; smallest first for the inverse, DIT) and writes them
-// back in place: one shared-memory round trip for LR stages. Stage st pairs
-// rows i and i + 2^st; its twiddle is tw[(i mod 2^st) << (logn-1-st)],
-// conjugated for the inverse. The caller syncs between passes.
-template <int LR, bool kInverse>
-__device__ __forceinline__ void fft_pass(float2* s, int logn, int logc,
-                                         int lo,
-                                         const float2* __restrict__ tw,
-                                         int tid, int nthreads) {
-  constexpr int R = 1 << LR;
-  const int cmask = (1 << logc) - 1;
-  const int items = 1 << (logn - LR + logc);
-  for (int b = tid; b < items; b += nthreads) {
-    const int c = b & cmask;
-    const int g = b >> logc;
-    const int k = g & ((1 << lo) - 1);
-    const int e0 = ((g >> lo) << (lo + LR)) + k;
-    float2 v[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) v[j] = s[(pad(e0 + (j << lo)) << logc) + c];
-#pragma unroll
-    for (int tt = 0; tt < LR; ++tt) {
-      const int t = kInverse ? tt : LR - 1 - tt;
-      const int st = lo + t;
-      const int hl = 1 << t;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        if (j & hl) continue;
-        const float2 w =
-            __ldg(&tw[(k + ((j & (hl - 1)) << lo)) << (logn - 1 - st)]);
-        const float2 a = v[j];
-        const float2 u = v[j + hl];
-        if (kInverse) {
-          const float2 uw = cmul_conj(u, w);
-          v[j] = cadd(a, uw);
-          v[j + hl] = csub(a, uw);
-        } else {
-          v[j] = cadd(a, u);
-          v[j + hl] = cmul(csub(a, u), w);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < R; ++j) s[(pad(e0 + (j << lo)) << logc) + c] = v[j];
-  }
-}
-
-// Radix 16 (a 1024-point transform is three passes). Measured on an H100
-// at 16 x 1024^2, radix 16 beat radix 8 and radix 32 for A + B: radix 32
-// needs ~160 registers a thread, which leaves one column block per SM.
-constexpr int kMaxLogRadix = 4;
-
-// fft_pass<lr> for a run-time lr <= LRMAX; only radices up to LRMAX are
-// compiled, so the largest one sets the kernels' register count.
-template <int LRMAX, bool kInverse>
-__device__ __forceinline__ void fft_pass_lr(int lr, float2* s, int logn,
-                                            int logc, int lo,
-                                            const float2* __restrict__ tw,
-                                            int tid, int nthreads) {
-  if (lr == LRMAX) {
-    fft_pass<LRMAX, kInverse>(s, logn, logc, lo, tw, tid, nthreads);
-  } else if constexpr (LRMAX > 1) {
-    fft_pass_lr<LRMAX - 1, kInverse>(lr, s, logn, logc, lo, tw, tid,
-                                     nthreads);
-  }
-}
-
-// Forward FFT along the rows of a (n, 2^logc) tile in shared memory,
-// element (i, c) at s[(pad(i) << logc) + c]: natural order in, bit-reversed
-// out (decimation in frequency). Ends with __syncthreads(); the caller
-// syncs before it.
-__device__ void fft_dif(float2* s, int logn, int logc,
-                        const float2* __restrict__ tw, int tid,
-                        int nthreads) {
-  for (int hi = logn - 1; hi >= 0; hi -= kMaxLogRadix) {
-    const int lr = hi + 1 < kMaxLogRadix ? hi + 1 : kMaxLogRadix;
-    fft_pass_lr<kMaxLogRadix, false>(lr, s, logn, logc, hi - lr + 1, tw,
-                                     tid, nthreads);
-    __syncthreads();
-  }
-}
-
-// Inverse FFT (unnormalized) on the same tile layout: bit-reversed order
-// in, natural out (decimation in time). Ends with __syncthreads().
-__device__ void ifft_dit(float2* s, int logn, int logc,
-                         const float2* __restrict__ tw, int tid,
-                         int nthreads) {
-  for (int lo = 0; lo < logn; lo += kMaxLogRadix) {
-    const int lr = logn - lo < kMaxLogRadix ? logn - lo : kMaxLogRadix;
-    fft_pass_lr<kMaxLogRadix, true>(lr, s, logn, logc, lo, tw, tid,
-                                    nthreads);
-    __syncthreads();
-  }
-}
 
 // Kernel A, the row pass; replaces _kernel_a (pyslice_tpu/ops/fused_step.py,
 // launched by _call_a). Floor at 16 x 1024^2: 264 MB moved (wave in and
@@ -294,12 +161,6 @@ __global__ void kconvert_kernel(float2* __restrict__ out,
     out[plane + (size_t)ox * ny + ys + (e & cmask)] =
         s[(pad(i) << logc) + (e & cmask)];
   }
-}
-
-int ilog2(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
 }
 
 constexpr int kColThreads = 256;

@@ -27,9 +27,15 @@ Each of ``row_pass``, ``col_pass`` and ``kconvert`` takes its plain
 ``torch.fft`` version for a tensor on the CPU, and for a CUDA tensor
 launches its kernel or raises. ``launches`` counts the kernel launches.
 
-Sizes: power-of-two axes from 128 to 4096 (``supported_size``). The
-n1*128 non-power-of-two sizes the JAX kernels take, and odd grids, go to
-the plain path through ``physics.propagate``'s dispatch.
+Sizes: power-of-two axes from 128 to 4096 (``supported_size``). Every
+other axis the JAX kernels take (the n1*128 sizes that are not powers of
+two, and odd composite grids) goes to the mixed-radix kernels of
+``ops.fused_step_odd`` and ``ops.fused_step_odd_resident`` through
+``physics.propagate``'s dispatch.
+
+``build()`` compiles every ``csrc/*.cu`` (one shared library each, all
+``nvcc`` processes started together) under one content hash of the
+sources and headers.
 """
 
 from __future__ import annotations
@@ -49,8 +55,9 @@ import torch
 from ..core.dtypes import SINGLE, as_real
 
 # Launches of each kernel since the last reset (the wrappers add one per
-# launch; nothing else touches them).
-launches = {"a": 0, "b": 0, "c": 0}
+# launch; nothing else touches them): A, B, C here, K4 and K5 in
+# ops.fused_step_odd, K6 in ops.fused_step_resident.
+launches = {"a": 0, "b": 0, "c": 0, "k4": 0, "k5": 0, "k6": 0}
 
 # Above this many bytes for the (nz, nx, ny) complex64 transmission stack,
 # kernel A takes sigma*V and evaluates cos/sin itself: half the memory, at
@@ -59,7 +66,8 @@ PRECOMPUTE_T_MAX_BYTES = 2 << 30
 
 ROW_MODES = {"first": 0, "mid": 1, "last": 2, "only": 3}
 
-_SRC = Path(__file__).parent / "csrc" / "fused_step.cu"
+_CSRC = Path(__file__).parent / "csrc"
+SOURCES = ("fused_step", "fused_step_odd", "resident")
 _BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -75,8 +83,8 @@ def supported_size(n: int) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class Build:
-    lib: ctypes.CDLL
-    path: Path
+    libs: dict          # source stem -> ctypes.CDLL
+    paths: dict         # source stem -> shared library path
     seconds: float      # compile + load time of this process's build()
     log: str            # nvcc's output (-Xptxas -v resource usage)
 
@@ -97,50 +105,83 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _sources_digest() -> str:
+    h = hashlib.sha256()
+    for f in sorted(_CSRC.glob("*.cu*")):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def build() -> Build:
-    """Compile ``csrc/fused_step.cu`` with nvcc for sm_90a (once per source
-    version, into ``ops/build/``) and load it. Raises if nvcc fails."""
+    """Compile every ``csrc/<stem>.cu`` of ``SOURCES`` with nvcc for sm_90a
+    (once per content hash, into ``ops/build/``; one nvcc process per
+    source, all started together) and load them. Raises if nvcc fails."""
     global _build
     if _build is not None:
         return _build
     t0 = time.perf_counter()
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    so = _BUILD_DIR / f"fused_step_{digest}.so"
+    digest = _sources_digest()
+    paths = {stem: _BUILD_DIR / f"{stem}_{digest}.so" for stem in SOURCES}
+    todo = {stem: so for stem, so in paths.items() if not so.exists()}
     log = ""
-    if not so.exists():
+    if todo:
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(_SRC)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        log = proc.stdout + proc.stderr
-        os.replace(tmp, so)
-    _build = Build(lib=_bind(ctypes.CDLL(str(so))), path=so,
-                   seconds=time.perf_counter() - t0, log=log)
+        nvcc = _nvcc()
+        procs = {}
+        for stem, so in todo.items():
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            procs[stem] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{stem}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = {stem: p.communicate()[0] for stem, (_, p) in procs.items()}
+        failed = [stem for stem, (_, p) in procs.items() if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{stem}.cu (exit {procs[stem][1].returncode}):\n{outs[stem]}"
+                for stem in failed))
+        for stem, (tmp, _) in procs.items():
+            os.replace(tmp, todo[stem])
+            log += f"--- {stem}.cu\n{outs[stem]}"
+    libs = {stem: _bind(ctypes.CDLL(str(so))) for stem, so in paths.items()}
+    _build = Build(libs=libs, paths=paths, seconds=time.perf_counter() - t0,
+                   log=log)
     return _build
 
 
+_ARGTYPES = {
+    "fs_row_pass": "pppppiiiip",
+    "fs_col_pass": "ppppiiip",
+    "fs_kconvert": "pppiiip",
+    "fs_row_pass_mr": "pppppiiiip",
+    "fs_col_pass_mr": "ppppiiip",
+    "fs_resident_loop": "ppppppppiiiiiiipp",
+}
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface's argument and result types."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fs_row_pass.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.fs_col_pass.argtypes = [p, p, p, p, i, i, i, p]
-    lib.fs_kconvert.argtypes = [p, p, p, i, i, i, p]
-    for fn in (lib.fs_row_pass, lib.fs_col_pass, lib.fs_kconvert):
-        fn.restype = i
+    """Declare the argument and result types of the C functions the
+    library exports ('p' a pointer, 'i' an int)."""
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+    for name, sig in _ARGTYPES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = [kinds[k] for k in sig]
+            fn.restype = ctypes.c_int
     return lib
 
 
 _twiddle_cache = {}
 
 
-def _twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """exp(-2 pi i m / n), m < n/2, computed in float64, stored complex64."""
-    key = (n, device)
+def _twiddles(n: int, device: torch.device, full: bool = False
+              ) -> torch.Tensor:
+    """exp(-2 pi i m / n) for m < n/2 (the pow2 engine) or, with ``full``,
+    m < n (the mixed-radix engine); computed in float64, stored
+    complex64."""
+    key = (n, device, full)
     if key not in _twiddle_cache:
-        w = np.exp(-2j * np.pi * np.arange(n // 2) / n).astype(np.complex64)
+        m = np.arange(n if full else n // 2)
+        w = np.exp(-2j * np.pi * m / n).astype(np.complex64)
         _twiddle_cache[key] = torch.from_numpy(w).to(device)
     return _twiddle_cache[key]
 
@@ -159,7 +200,10 @@ def _check_cuda(x: torch.Tensor, name: str, shape, dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_state(state: torch.Tensor) -> None:
+def _check_state(state: torch.Tensor, supported=None,
+                 sizes: str = "powers of two from 128 to 4096") -> None:
+    """A CUDA complex64 (probes, nx, ny) wave whose axes ``supported``
+    (default: ``supported_size``) takes; raises otherwise."""
     if state.device.type != "cuda":
         raise ValueError(f"fused_step kernels need a CUDA or CPU tensor, "
                          f"got {state.device}")
@@ -167,9 +211,10 @@ def _check_state(state: torch.Tensor) -> None:
         raise ValueError(f"state must be (probes, nx, ny), got "
                          f"{tuple(state.shape)}")
     n_probes, nx, ny = state.shape
-    if not (supported_size(nx) and supported_size(ny)):
+    supported = supported or supported_size
+    if not (supported(nx) and supported(ny)):
         raise ValueError(f"unsupported grid {nx}x{ny} for the CUDA kernels "
-                         "(powers of two from 128 to 4096)")
+                         f"({sizes})")
     if not 1 <= n_probes <= 65535:
         raise ValueError(f"probe count {n_probes} outside [1, 65535]")
     _check_cuda(state, "state", state.shape, torch.complex64)
@@ -238,7 +283,7 @@ def row_pass(mode: str, state: torch.Tensor, t: torch.Tensor,
     _check_cuda(t, "t", (nx, ny), torch.float32 if phase else torch.complex64,
                 state.device)
     out = _out_for(state, out)
-    lib = build().lib
+    lib = build().libs["fused_step"]
     with torch.cuda.device(state.device):
         err = lib.fs_row_pass(
             out.data_ptr(), state.data_ptr(),
@@ -260,7 +305,7 @@ def col_pass(state: torch.Tensor, prop: torch.Tensor,
     n_probes, nx, ny = state.shape
     _check_cuda(prop, "prop", (nx, ny), torch.complex64, state.device)
     out = _out_for(state, out)
-    lib = build().lib
+    lib = build().libs["fused_step"]
     with torch.cuda.device(state.device):
         err = lib.fs_col_pass(
             out.data_ptr(), state.data_ptr(), prop.data_ptr(),
@@ -278,7 +323,7 @@ def kconvert(state: torch.Tensor) -> torch.Tensor:
     _check_state(state)
     n_probes, nx, ny = state.shape
     out = torch.empty_like(state)
-    lib = build().lib
+    lib = build().libs["fused_step"]
     with torch.cuda.device(state.device):
         err = lib.fs_kconvert(
             out.data_ptr(), state.data_ptr(),

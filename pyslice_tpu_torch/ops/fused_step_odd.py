@@ -1,0 +1,194 @@
+"""The mixed-radix slice-step chain: kernels K4 and K5 in CUDA C++.
+
+Counterpart of ``pyslice_tpu/ops/fused_step_odd.py``. The same two-pass
+chain as ``ops.fused_step`` (A first / B / A mid ... / A last), on grids
+whose axes are not powers of two: the reference-natural ``int(l/s) + 1``
+grids (odd composite, e.g. 1023 = 3 * 11 * 31) and the n1*128 sizes
+(384, 1152, ...) that the JAX package gives to its aligned kernels.
+
+    K4 ``row_pass_mr``: kernel A's four modes (first / mid / last / only)
+    K5 ``col_pass_mr``: kernel B, IFFT_x(P * FFT_x(.))
+
+The kernels (``csrc/fused_step_odd.cu``) run a mixed-radix Stockham FFT in
+shared memory (``csrc/fft_mixed.cuh``): natural order in and out, so the
+wave, the transmission planes and the Fresnel plane all stay in natural
+order and nothing is permuted. The JAX kernels' digit-split layouts and
+scrambled frequency order were limits of Pallas on the TPU and are not
+ported. There is no fused k-space conversion on this chain (the JAX
+package has none either): ``engine.pipeline`` converts its exit wave with
+``torch.fft``.
+
+Each wrapper takes its plain ``torch.fft`` version (kernel A's and B's) for
+a tensor on the CPU, and for a CUDA tensor launches its kernel or raises.
+``launches["k4"]`` / ``launches["k5"]`` count the kernel launches.
+
+Sizes (``supported_size_mr``): every axis the JAX package gives a kernel,
+up to 4096 (the engine's shared-memory limit): the JAX odd kernels' rule
+(``supported_size_odd``, with the divisor rule of its
+``matfft.scrambled_factors``), and the JAX aligned kernels' n1*128 rule.
+Primes such as 1009, which the JAX package sends to XLA, are left to the
+plain path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .fused_step import (_check_cuda, _check_state, _chain, _out_for,
+                         _plain_col_pass, _plain_row_pass, _raise_on,
+                         _twiddles, build, launches, record_layers_chain,
+                         ROW_MODES)
+
+# The engine's limit: one row of 4096 in two shared-memory buffers, 64 KB.
+MAX_AXIS = 4096
+
+
+# --- eligibility (the JAX package's size rules, as plain functions) -----------
+
+
+def _fused_split_cost(d: int, m: int) -> float:
+    """The JAX package's per-point cost model of a (d, m) split
+    (``matfft._fused_split_cost``); here it only decides eligibility."""
+    tiles = -(-m // 128)
+    mxu = tiles * tiles * 16384.0 / m
+    pad = (-(-m // 8) * 8) * (tiles * 128.0) / (m * m)
+    return mxu + 15.0 * d * pad
+
+
+def scrambled_factors(n: int, n_probes: int = None):
+    """(d, m), n = d * m, as ``matfft.scrambled_factors`` picks it: the
+    smallest divisor 2 <= d <= 16 of n, or for ``n_probes >= 2`` the split
+    the cost model prefers by at least 10%; (n, 1) when n has none."""
+    divisors = [d for d in range(2, 17) if n % d == 0]
+    if not divisors:
+        return (n, 1)
+    d0 = divisors[0]
+    if n_probes is not None and n_probes >= 2:
+        fused = [d for d in divisors
+                 if n // d >= 64
+                 and n * (n // d) * 4 * 17 < 60 * 1024 * 1024]
+        if d0 in fused and len(fused) > 1:
+            best = min(fused, key=lambda d: _fused_split_cost(d, n // d))
+            if _fused_split_cost(best, n // best) < \
+                    0.9 * _fused_split_cost(d0, n // d0):
+                d0 = best
+    return (d0, n // d0)
+
+
+def supported_size_odd(n: int, n_probes: int = None) -> bool:
+    """The JAX odd kernels' size rule (``fused_step_odd.supported_size_odd``,
+    without its measurement-only ``scrambled_d`` override): a divisor split
+    d <= 16 with m >= 128, or m >= 64 where the multi-probe cost model
+    picks a split other than the smallest divisor."""
+    d, m = scrambled_factors(n, n_probes)
+    footprint = n * m * 4 * (5 + 12)
+    if n_probes is not None and n_probes >= 2 and d != scrambled_factors(n)[0]:
+        min_m = 64
+    else:
+        min_m = 128
+    return 1 < d <= 16 and m >= min_m and footprint < 60 * 1024 * 1024
+
+
+def supported_size_mr(n: int, n_probes: int = None) -> bool:
+    """Axis lengths K4 and K5 take: what the JAX package gives its odd or
+    aligned kernels, up to MAX_AXIS."""
+    return 2 <= n <= MAX_AXIS and (n % 128 == 0
+                                   or supported_size_odd(n, n_probes))
+
+
+MR_SIZES = "the JAX kernels' sizes up to 4096"
+
+
+# --- wrappers ------------------------------------------------------------------
+
+
+def row_pass_mr(mode: str, state: torch.Tensor, t: torch.Tensor,
+                out=None) -> torch.Tensor:
+    """K4 on a (P, nx, ny) complex64 wave: kernel A's ``mode`` with the
+    mixed-radix engine. ``t``: the (nx, ny) complex64 transmission plane,
+    or the float32 phase sigma*V. ``out`` may be ``state`` (in place)."""
+    if mode not in ROW_MODES:
+        raise ValueError(f"row_pass_mr mode must be one of {list(ROW_MODES)}")
+    if state.device.type == "cpu":
+        return _plain_row_pass(mode, state, t, out)
+    _check_state(state, lambda n: supported_size_mr(n, state.shape[0]),
+                 MR_SIZES)
+    n_probes, nx, ny = state.shape
+    phase = not t.is_complex()
+    _check_cuda(t, "t", (nx, ny), torch.float32 if phase else torch.complex64,
+                state.device)
+    out = _out_for(state, out)
+    lib = build().libs["fused_step_odd"]
+    with torch.cuda.device(state.device):
+        err = lib.fs_row_pass_mr(
+            out.data_ptr(), state.data_ptr(),
+            None if phase else t.data_ptr(), t.data_ptr() if phase else None,
+            _twiddles(ny, state.device, full=True).data_ptr(), n_probes, nx,
+            ny, ROW_MODES[mode], torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "row_pass_mr (K4)")
+    launches["k4"] += 1
+    return out
+
+
+def col_pass_mr(state: torch.Tensor, prop: torch.Tensor,
+                out=None) -> torch.Tensor:
+    """K5: IFFT_x(prop * FFT_x(state)) with the mixed-radix engine; ``prop``
+    the natural-order (nx, ny) complex64 Fresnel plane. ``out`` may be
+    ``state``."""
+    if state.device.type == "cpu":
+        return _plain_col_pass(state, prop, out)
+    _check_state(state, lambda n: supported_size_mr(n, state.shape[0]),
+                 MR_SIZES)
+    n_probes, nx, ny = state.shape
+    _check_cuda(prop, "prop", (nx, ny), torch.complex64, state.device)
+    out = _out_for(state, out)
+    lib = build().libs["fused_step_odd"]
+    with torch.cuda.device(state.device):
+        err = lib.fs_col_pass_mr(
+            out.data_ptr(), state.data_ptr(), prop.data_ptr(),
+            _twiddles(nx, state.device, full=True).data_ptr(), n_probes, nx,
+            ny, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "col_pass_mr (K5)")
+    launches["k5"] += 1
+    return out
+
+
+# --- the chain -------------------------------------------------------------------
+
+_KERNEL_PASSES = (row_pass_mr, col_pass_mr, None)
+_PLAIN_PASSES = (_plain_row_pass, _plain_col_pass, None)
+
+
+def _run(passes, fn, psi, potential_szy, kxs, kys, sigma, lam, dz,
+         record_layers, ksq, kmax2, tantilt):
+    if record_layers is not None:
+        return record_layers_chain(fn, psi, potential_szy, kxs, kys, sigma,
+                                   lam, dz, ksq, record_layers, kmax2=kmax2,
+                                   tantilt=tantilt)
+    return _chain(passes, psi, potential_szy, kxs, kys, sigma, lam, dz, ksq,
+                  kmax2, tantilt, kspace=False)
+
+
+def fused_multislice_odd(psi, potential_szy, kxs, kys, *, sigma: float,
+                         lam: float, dz: float, record_layers=None, ksq=None,
+                         kmax2=None, tantilt=None) -> torch.Tensor:
+    """The K4/K5 chain, same contract as ``fused_step.fused_multislice``
+    (depth recording by segment chaining included): the exit wave, or
+    (n_layers, n_probes, nx, ny) snapshots with ``record_layers``."""
+    n_probes, nx, ny = psi.shape
+    if not (supported_size_mr(nx, n_probes) and supported_size_mr(ny, n_probes)):
+        raise ValueError(f"unsupported grid {nx}x{ny} for fused odd path")
+    return _run(_KERNEL_PASSES, fused_multislice_odd, psi, potential_szy,
+                kxs, kys, sigma, lam, dz, record_layers, ksq, kmax2, tantilt)
+
+
+def fused_multislice_odd_plain(psi, potential_szy, kxs, kys, *, sigma: float,
+                               lam: float, dz: float, record_layers=None,
+                               ksq=None, kmax2=None, tantilt=None
+                               ) -> torch.Tensor:
+    """``fused_multislice_odd`` through the plain versions of K4 and K5 on
+    any device (the reference the kernels are held to)."""
+    return _run(_PLAIN_PASSES, fused_multislice_odd_plain, psi,
+                potential_szy, kxs, kys, sigma, lam, dz, record_layers, ksq,
+                kmax2, tantilt)
+

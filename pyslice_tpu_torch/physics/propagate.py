@@ -9,10 +9,11 @@ per slice z,
 with the Fresnel step skipped after the last slice. ``record_layers``
 snapshots the post-transmission wave at the given slice indices.
 
-``multislice`` dispatches through ``pick_fused``: the hand-written CUDA
-chain (``ops.fused_step``) for an eligible problem — a CUDA complex64
-(n_probes, nx, ny) batch whose axes the kernels take — and otherwise the
-plain ``torch.fft`` loop below. ``ops.config.fused_multislice`` is read at
+``multislice`` dispatches through ``pick_fused``: one of the hand-written
+CUDA families (``fused_family``: the one-launch loop K6 or the two-pass
+chains, on power-of-two or mixed-radix grids) for an eligible problem — a
+CUDA complex64 (n_probes, nx, ny) batch whose axes the kernels take — and
+otherwise the plain ``torch.fft`` loop below. ``ops.config`` is read at
 every call ("off" forces the plain loop).
 """
 
@@ -26,27 +27,60 @@ import torch
 from ..core.constants import interaction_parameter, wavelength as _wavelength
 from ..core.dtypes import Precision, as_real, get_precision
 from ..ops import config as ops_config
-from ..ops import fused_step
+from ..ops import (fused_step, fused_step_odd, fused_step_odd_resident,
+                   fused_step_resident)
 from .probe import fresnel_kernel
 
 
-def _fused_eligible(psi: torch.Tensor, prec: Precision) -> bool:
-    """The fused CUDA chain fits: a CUDA complex64 3-D batch in single
-    precision, both axes supported by the kernels, and the flag not off."""
-    if ops_config.fused_multislice == "off":
-        return False
-    if prec.name != "single" or psi.dim() != 3:
-        return False
+def fused_family(n_probes: int, nx: int, ny: int, nz: int,
+                 precision: str = "single",
+                 resident: bool = True) -> Optional[str]:
+    """The fused kernel family for a (n_probes, nx, ny) batch through nz
+    slices, in the JAX package's order (``physics/propagate.py``'s
+    ``pick_fused``): "resident" (K6, power-of-two grid), "aligned" (A/B/C),
+    "odd_resident" (K6, mixed-radix grid), "odd" (K4/K5), or None for the
+    plain loop. The resident families need ``resident``, nz >= 2 and the
+    probe-pixel crossover ``resident_preferred``. A pure function of its
+    arguments; ``pick_fused`` adds the device and the flags.
+
+    Differences from the JAX package: the n1*128 sizes that are not powers
+    of two go to the mixed-radix families (JAX: aligned); axes above 4096
+    go to the plain loop; the JAX VMEM gates (resident grids up to 2^20
+    pixels and 2048 a side; the odd resident kernel's estimate, which at
+    1023^2 admits one probe only) are not applied."""
+    if precision != "single":
+        return None
+    preferred = (resident and nz >= 2
+                 and fused_step_resident.resident_preferred(n_probes, nx, ny))
+    if fused_step.supported_size(nx) and fused_step.supported_size(ny):
+        return "resident" if preferred else "aligned"
+    if (fused_step_odd.supported_size_mr(nx, n_probes)
+            and fused_step_odd.supported_size_mr(ny, n_probes)):
+        return "odd_resident" if preferred else "odd"
+    return None
+
+
+def pick_fused(psi: torch.Tensor, prec: Precision,
+               nz: int) -> Optional[str]:
+    """``fused_family`` for this batch on its device: a CUDA complex64
+    (n_probes, nx, ny) batch, with ``ops.config`` read at every call
+    ("off" flags give None or no resident family)."""
+    if ops_config.fused_multislice == "off" or psi.dim() != 3:
+        return None
     if not psi.is_cuda or psi.dtype != torch.complex64:
-        return False
-    nx, ny = psi.shape[-2:]
-    return fused_step.supported_size(nx) and fused_step.supported_size(ny)
+        return None
+    n_probes, nx, ny = psi.shape
+    return fused_family(n_probes, nx, ny, nz, prec.name,
+                        resident=ops_config.resident_multislice != "off")
 
 
-def pick_fused(psi: torch.Tensor, prec: Precision) -> Optional[str]:
-    """The fused kernel family for this problem, or None for the plain
-    loop. The port has one family so far: the aligned A/B/C chain."""
-    return "aligned" if _fused_eligible(psi, prec) else None
+# Each family's exit-wave entry point.
+FUSED_ENTRIES = {
+    "resident": fused_step_resident.fused_multislice_resident,
+    "aligned": fused_step.fused_multislice,
+    "odd_resident": fused_step_odd_resident.fused_multislice_odd_resident,
+    "odd": fused_step_odd.fused_multislice_odd,
+}
 
 
 def bandwidth_kmax2(kxs, kys, bandwidth_limit: Optional[float],
@@ -136,15 +170,16 @@ def multislice(psi, potential_szy, kxs, kys, *, eV: float,
             raise ValueError(f"record_layers out of range [0, {nz - 1}]")
         record_layers = layers
 
-    kernel = pick_fused(psi, prec) if fused is not False else None
+    kernel = pick_fused(psi, prec, nz) if fused is not False else None
     if kernel is None and (fused or ops_config.fused_multislice == "on"):
         raise ValueError(
             f"a fused kernel was required but none fits this problem "
             f"(shape {tuple(psi.shape)}, device {psi.device}, dtype "
             f"{psi.dtype}; needs a CUDA complex64 (probes, nx, ny) batch "
-            "with power-of-two axes from 128 to 4096)")
-    if kernel == "aligned":
-        return fused_step.fused_multislice(
+            "in single precision whose axes are powers of two from 128 to "
+            "4096 or sizes the JAX kernels take, up to 4096)")
+    if kernel is not None:
+        return FUSED_ENTRIES[kernel](
             psi, potential_szy, kxs, kys, sigma=sigma, lam=lam, dz=dz,
             record_layers=record_layers, ksq=ksq, kmax2=kmax2,
             tantilt=tantilt)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels A, B and C against their plain torch.fft
-versions, on the card. Every test needs a CUDA device and skips without
+"""The port's CUDA kernels (A, B, C; K4, K5 of the mixed-radix chain; K6,
+the resident slice loop) against their plain torch.fft versions, on the
+card. Every test needs a CUDA device and skips without
 one. The machine with the card has no JAX, so run this file there without
 the JAX-side conftest:
 
@@ -12,6 +13,9 @@ import torch
 
 from pyslice_tpu_torch.core.constants import interaction_parameter, wavelength
 from pyslice_tpu_torch.ops import fused_step as fs
+from pyslice_tpu_torch.ops import fused_step_odd as fo
+from pyslice_tpu_torch.ops import fused_step_odd_resident as fodr
+from pyslice_tpu_torch.ops import fused_step_resident as fr
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +123,110 @@ def test_wrappers_raise_on_ineligible_cuda_tensors(dev):
     with pytest.raises(ValueError, match="shape"):
         fs.col_pass(_wave(dev, 1, 128, 128),
                     torch.ones((128, 256), dtype=torch.complex64, device=dev))
+
+
+# --- K4, K5 (mixed-radix chain) and K6 (resident loop) ----------------------
+
+MR_SIZES = [258, 384, 387, 1018, 1023, 1152]
+
+
+def _prop(dev, nx, ny):
+    return fs.fresnel_plane(np.fft.fftfreq(nx, 0.1), np.fft.fftfreq(ny, 0.1),
+                            LAM, 0.4846, kmax2=16.0, tantilt=(0.003, -0.001),
+                            device=dev)
+
+
+@pytest.mark.parametrize("n", MR_SIZES)
+@pytest.mark.parametrize("P", [1, 16])
+@pytest.mark.parametrize("mode", ["first", "mid", "last", "only"])
+def test_row_pass_mr_matches_plain(dev, n, P, mode):
+    psi = _wave(dev, P, 387 if n != 387 else 258, n)
+    nx = psi.shape[1]
+    sv = _phase(dev, nx, n)
+    for t in (sv, torch.complex(torch.cos(sv), torch.sin(sv))):
+        n0 = fs.launches["k4"]
+        got = fo.row_pass_mr(mode, psi, t)
+        assert fs.launches["k4"] == n0 + 1
+        _ok(got, fs._plain_row_pass(mode, psi, t))
+    buf = psi.clone()
+    assert fo.row_pass_mr(mode, buf, t, out=buf) is buf       # in place
+    _ok(buf, got)
+
+
+@pytest.mark.parametrize("n", MR_SIZES)
+@pytest.mark.parametrize("P", [1, 16])
+def test_col_pass_mr_matches_plain(dev, n, P):
+    psi = _wave(dev, P, n, 393)
+    prop = _prop(dev, n, 393)
+    n0 = fs.launches["k5"]
+    _ok(fo.col_pass_mr(psi, prop), fs._plain_col_pass(psi, prop))
+    assert fs.launches["k5"] == n0 + 1
+
+
+@pytest.mark.parametrize("n", MR_SIZES + [1024])
+@pytest.mark.parametrize("P", [1, 16])
+@pytest.mark.parametrize("kspace", [False, True])
+def test_resident_loop_matches_plain(dev, n, P, kspace):
+    nx = 258 if n != 258 else 387          # an even and an odd axis
+    psi = _wave(dev, P, nx, n)
+    g = torch.Generator(device=dev).manual_seed(3)
+    v = torch.randn((3, nx, n), device=dev, generator=g) * 20
+    prop = _prop(dev, nx, n)
+    for t in (v, torch.complex(torch.cos(v), torch.sin(v))):
+        n0 = fs.launches["k6"]
+        got = fr.resident_loop(psi, t, prop, kspace)
+        assert fs.launches["k6"] == n0 + 1
+        _ok(got, fr._plain_resident_loop(psi, t, prop, kspace))
+    assert fr.last_launch["grid"] <= (fr.last_launch["blocks_per_sm"]
+                                      * fr.last_launch["sms"])
+
+
+@pytest.mark.parametrize("n", [1023, 1024])
+def test_resident_loop_square_grids(dev, n):
+    psi = _wave(dev, 1, n, n)
+    g = torch.Generator(device=dev).manual_seed(4)
+    v = torch.randn((14, n, n), device=dev, generator=g) * 20
+    prop = _prop(dev, n, n)
+    for kspace in (False, True):
+        _ok(fr.resident_loop(psi, v, prop, kspace),
+            fr._plain_resident_loop(psi, v, prop, kspace))
+    assert fr.last_launch["engine"] == ("pow2" if n == 1024 else "mixed")
+
+
+@pytest.mark.parametrize("nz", [1, 2, 6])
+def test_odd_entry_points_match_plain(dev, nz):
+    psi = _wave(dev, 4, 387, 258)
+    g = torch.Generator(device=dev).manual_seed(2)
+    v = torch.randn((nz, 387, 258), device=dev, generator=g) * 50
+    kxs, kys = np.fft.fftfreq(387, 0.1), np.fft.fftfreq(258, 0.1)
+    kw = dict(sigma=SIGMA, lam=LAM, dz=0.5)
+    before = dict(fs.launches)
+    got = fo.fused_multislice_odd(psi, v, kxs, kys, **kw)
+    assert (fs.launches["k4"] - before["k4"],
+            fs.launches["k5"] - before["k5"]) == (nz, nz - 1)
+    _ok(got, fs.fused_multislice_plain(psi, v, kxs, kys, **kw))
+    _ok(fodr.fused_multislice_kspace_odd_resident(psi, v, kxs, kys, **kw),
+        fs.fused_multislice_kspace_plain(psi, v, kxs, kys, **kw))
+    if nz == 6:
+        rl = dict(record_layers=(1, 5), **kw)
+        want = fs.fused_multislice_plain(psi, v, kxs, kys, **rl)
+        _ok(fo.fused_multislice_odd(psi, v, kxs, kys, **rl), want)
+        _ok(fodr.fused_multislice_odd_resident(psi, v, kxs, kys, **rl), want)
+    assert torch.equal(psi, _wave(dev, 4, 387, 258))   # input untouched
+
+
+def test_resident_launch_too_large_raises(dev):
+    psi = _wave(dev, 1, 387, 393)
+    v = torch.zeros((2, 387, 393), device=dev)
+    with pytest.raises(RuntimeError, match="cooperative launch too large"):
+        fr.resident_loop(psi, v, _prop(dev, 387, 393), blocks=1 << 20)
+
+
+def test_mr_wrappers_raise_on_ineligible_cuda_tensors(dev):
+    with pytest.raises(ValueError, match="unsupported grid"):
+        fo.row_pass_mr("first", _wave(dev, 1, 1009, 387),
+                       torch.zeros((1009, 387), device=dev))
+    with pytest.raises(ValueError, match="nz >= 2"):
+        fr.resident_loop(_wave(dev, 1, 387, 387),
+                         torch.zeros((1, 387, 387), device=dev),
+                         _prop(dev, 387, 387))

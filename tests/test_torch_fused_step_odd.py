@@ -1,0 +1,149 @@
+"""Port parity: the mixed-radix chain (kernels K4 and K5) of
+pyslice_tpu_torch.ops.fused_step_odd against pyslice_tpu's multislice on
+odd and n1*128 grids.
+
+On the CPU the port's wrappers run their plain torch.fft versions; the
+JAX side is its plain XLA loop (multislice(fused=False)), whose Pallas odd
+kernels tests/test_fused.py checks in interpret mode. The CUDA kernels are
+held to the plain versions on the card by tests/test_torch_cuda_kernels.py
+and chip_smoke.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from pyslice_tpu.core.constants import interaction_parameter, wavelength
+from pyslice_tpu.core.dtypes import DOUBLE as JDOUBLE, SINGLE as JSINGLE
+from pyslice_tpu.ops import fused_step_odd as jodd
+from pyslice_tpu.ops import matfft as jmatfft
+from pyslice_tpu.physics import propagate as jprop
+from pyslice_tpu_torch.ops import fused_step as tfs
+from pyslice_tpu_torch.ops import fused_step_odd as todd
+
+from oracle import residual
+
+torch.set_num_threads(2)
+
+EV = 100e3
+LAM = wavelength(EV)
+SIGMA = interaction_parameter(EV)
+DZ = 0.5
+
+
+def _inputs(P, NX, NY, NZ, seed=0):
+    rng = np.random.default_rng(seed)
+    psi = (rng.standard_normal((P, NX, NY))
+           + 1j * rng.standard_normal((P, NX, NY)))
+    v = rng.standard_normal((NZ, NX, NY)) * 50
+    kxs = np.fft.fftfreq(NX, 0.1)
+    kys = np.fft.fftfreq(NY, 0.1)
+    return psi, v, kxs, kys
+
+
+def _jax(psi, v, kxs, kys, precision, **kw):
+    return np.asarray(jprop.multislice(
+        jnp.asarray(psi), jnp.asarray(v), kxs, kys, eV=EV, dz=DZ,
+        precision=precision, fused=False, **kw))
+
+
+def _port64(fn, psi, v, kxs, kys, **kw):
+    """A port entry point in complex64 on the CPU (its kernels' precision)."""
+    return fn(torch.from_numpy(psi.astype(np.complex64)),
+              torch.from_numpy(v.astype(np.float32)), kxs, kys,
+              sigma=SIGMA, lam=LAM, dz=DZ, **kw).numpy()
+
+
+def planes64(v, kxs, kys, kmax2=None, tantilt=None):
+    """complex128 transmission stack and natural-order Fresnel plane."""
+    t = np.exp(1j * SIGMA * v)
+    kx, ky = kxs[:, None], kys[None, :]
+    k2 = kx ** 2 + ky ** 2
+    pp = (-np.pi * LAM * DZ) * k2
+    if tantilt is not None:
+        pp = pp + (2.0 * np.pi * DZ) * (kx * tantilt[0] + ky * tantilt[1])
+    prop = np.exp(1j * pp)
+    if kmax2 is not None:
+        prop = prop * (k2 <= kmax2)
+    return torch.from_numpy(t), torch.from_numpy(prop)
+
+
+CASES = {
+    "exit": {},
+    "band_limit": dict(kmax2=(2.0 / 3.0 * 4.0) ** 2),
+    "tilt": dict(tantilt=(0.004, -0.002)),
+    "record": dict(record_layers=(0, 2)),
+}
+
+
+@pytest.mark.parametrize("shape", [(1, 387, 393, 3), (4, 258, 387, 2),
+                                   (2, 384, 387, 4)])
+@pytest.mark.parametrize("case", list(CASES))
+def test_chain_complex64_matches_jax(shape, case):
+    kw = dict(CASES[case])
+    if case == "record":
+        kw["record_layers"] = (0, shape[3] - 1)
+    psi, v, kxs, kys = _inputs(*shape)
+    want = _jax(psi, v, kxs, kys, JSINGLE, **kw)
+    got = _port64(todd.fused_multislice_odd, psi, v, kxs, kys, **kw)
+    assert got.shape == want.shape and got.dtype == np.complex64
+    assert residual(got, want) <= 1e-6
+
+
+@pytest.mark.parametrize("kw", [{}, dict(kmax2=9.0, tantilt=(0.003, 0.001))])
+def test_plain_passes_complex128_match_jax(kw):
+    """The K4/K5 plain versions, chained by hand in complex128."""
+    psi, v, kxs, kys = _inputs(2, 258, 387, 3, seed=1)
+    t, prop = planes64(v, kxs, kys, **kw)
+    state = todd.row_pass_mr("first", torch.from_numpy(psi), t[0])
+    state = todd.row_pass_mr("mid", todd.col_pass_mr(state, prop), t[1])
+    state = todd.row_pass_mr("last", todd.col_pass_mr(state, prop), t[2])
+    want = _jax(psi, v, kxs, kys, JDOUBLE, **kw)
+    assert residual(state.numpy(), want) <= 1e-10
+
+
+def test_one_slice_is_transmission_only():
+    psi, v, kxs, kys = _inputs(2, 387, 393, 1, seed=2)
+    got = _port64(todd.fused_multislice_odd, psi, v, kxs, kys)
+    want = psi * np.exp(1j * np.float32(SIGMA) * v[0].astype(np.float32))
+    assert residual(got, want) <= 1e-12
+
+
+def test_cpu_wrappers_are_the_plain_chain():
+    psi, v, kxs, kys = _inputs(2, 258, 387, 3, seed=3)
+    before = dict(tfs.launches)
+    a = _port64(todd.fused_multislice_odd, psi, v, kxs, kys)
+    b = _port64(todd.fused_multislice_odd_plain, psi, v, kxs, kys)
+    np.testing.assert_array_equal(a, b)
+    assert tfs.launches == before         # no kernel launched on the CPU
+
+
+@pytest.mark.parametrize("n", [129, 255, 258, 384, 385, 387, 393, 640, 1009,
+                               1018, 1023, 1024, 1152, 2046, 3069, 4095])
+@pytest.mark.parametrize("n_probes", [None, 1, 2, 16])
+def test_size_rules_equal_jax(n, n_probes):
+    assert todd.scrambled_factors(n, n_probes) == \
+        jmatfft.scrambled_factors(n, n_probes)
+    assert todd.supported_size_odd(n, n_probes) == \
+        jodd.supported_size_odd(n, n_probes)
+
+
+def test_mixed_radix_sizes():
+    for n in (384, 387, 393, 1018, 1023, 1152, 3840):
+        assert todd.supported_size_mr(n) and todd.supported_size_mr(n, 16)
+    for n in (385, 1009, 127, 5120):     # XLA's in the JAX package, > 4096
+        assert not todd.supported_size_mr(n)
+    assert todd.supported_size_mr(1023, 16)       # d = 11, m = 93
+
+
+def test_unsupported_grid_and_mode_raise():
+    psi = torch.zeros((1, 1009, 384), dtype=torch.complex64)
+    v = torch.zeros((2, 1009, 384))
+    with pytest.raises(ValueError, match="unsupported grid"):
+        todd.fused_multislice_odd(psi, v, np.zeros(1009), np.zeros(384),
+                                  sigma=1e-3, lam=0.037, dz=0.5)
+    with pytest.raises(ValueError, match="mode"):
+        todd.row_pass_mr("middle", psi, v[0])
+    meta = torch.empty((1, 387, 387), dtype=torch.complex64, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        todd.col_pass_mr(meta, torch.empty((387, 387), device="meta"))

@@ -112,7 +112,7 @@ def test_transmission_is_unimodular_and_equals_jax():
 def test_dispatch_seam_on_cpu():
     psi, v, kxs, kys = _inputs(1, 128, 128, 2, seed=5)
     p = torch.from_numpy(psi.astype(np.complex64))
-    assert tprop.pick_fused(p, SINGLE) is None       # CPU: plain loop
+    assert tprop.pick_fused(p, SINGLE, 2) is None    # CPU: plain loop
     with pytest.raises(ValueError, match="fused kernel was required"):
         tprop.multislice(p, torch.from_numpy(v), kxs, kys, eV=EV, dz=0.5,
                          fused=True)
