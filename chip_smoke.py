@@ -27,7 +27,19 @@ Phases, each printing one line (or a few) and failing hard:
    instantiation; ms/frame for K6, the A/B/C chain and plain;
 8. 16-probe STEM on the 1023^2 box (10 frames): K4 and K5 launch nz and
    nz - 1 times a frame, HAADF finite and positive;
-9. a JSON line per kernel, the nvidia-smi line, and the final JSON line.
+9. the adjoint's kernels against their plain versions: K7 at 16 pairs x
+   1024^2 and K8 at 16 pairs x 1023^2 (mid mode with planes and with the
+   phase, last mode), then each whole adjoint chain (14 slices) against its
+   plain twin on lambda_0 and vbar;
+10. multislice ptychography at 1024^2 and at 1023^2: frame 0 of the boxes
+   of phases 5 and 8, data from the kernel forward (64 positions on an
+   8 x 8 scan), the gradients of one minibatch loss (V and probe) through
+   the kernels against the plain path, then msp_reconstruct (batch 16,
+   5 steps) with the kernels and with the plain path: launch counts reset
+   before and checked after every step, finite and falling losses, s/step;
+11. refine_structure at 1024^2 for 3 steps, the launches of every step
+   checked;
+12. a JSON line per kernel, the nvidia-smi line, and the final JSON line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository around it.
@@ -62,7 +74,16 @@ KERNELS = {
                  "pyslice_tpu/ops/fused_step_odd_resident.py:369"),
     "k6_pow2": ("fused_step_resident.resident_loop (K6, radix-16)",
                 "resident.cu", "pyslice_tpu/ops/fused_step_resident.py:250"),
+    "k7": ("fused_step_adjoint.row_pass_bwd (K7)", "fused_step_adjoint.cu",
+           "pyslice_tpu/ops/fused_step_adjoint.py:148"),
+    "k8": ("fused_step_adjoint.row_pass_mr_bwd (K8)",
+           "fused_step_adjoint_odd.cu",
+           "pyslice_tpu/ops/fused_step_adjoint.py:346"),
 }
+MSP_SCAN, MSP_BATCH, MSP_STEPS = 8, 16, 5   # 64 positions, 16 a step
+MSP_STEP_A = 0.5             # scan step (A): neighbouring probes overlap
+REFINE_STEPS = 3
+GRAD_REL = 1e-3     # float32 gradients, kernel path against plain
 
 
 def require(cond, what):
@@ -471,6 +492,249 @@ def odd_stem_phase(dev, card, traj, n_frames=N_FRAMES):
     return counts
 
 
+def check_rel(name, got, want):
+    """A real tensor (vbar) against its reference: max|d|/max|ref|."""
+    d, rel, _ = errors(got, want)
+    print(f"  {name}: max|d| {d:.3e}  max|d|/max|ref| {rel:.3e}")
+    require(rel <= MAX_REL, f"{name} disagrees")
+    return d
+
+
+def adjoint_kernel_phase(dev, P=N_PROBES, nz=N_SLICES,
+                         sizes=(("k7", N_GRID), ("k8", N_ODD))):
+    """Phase 9: K7 and K8 on P pairs against their plain version, and each
+    adjoint chain against its plain twin. Returns the JSON records keyed by
+    kernel."""
+    import numpy as np
+    import torch
+    from pyslice_tpu_torch.core.constants import (interaction_parameter,
+                                                  wavelength)
+    from pyslice_tpu_torch.ops import fused_step_adjoint as fa
+
+    lam, sigma = wavelength(100e3), interaction_parameter(100e3)
+    kernels = {"k7": (fa.row_pass_bwd, fa.fused_adjoint_chain),
+               "k8": (fa.row_pass_mr_bwd, fa.fused_adjoint_chain_odd)}
+    g = torch.Generator(device=dev).manual_seed(3)
+    records = {}
+    for key, n in sizes:
+        row_bwd, chain = kernels[key]
+        state = torch.randn((2 * P, n, n), dtype=torch.complex64,
+                            device=dev, generator=g)
+        sv = torch.randn((n, n), device=dev, generator=g) * 20.0
+        t = torch.complex(torch.cos(sv), torch.sin(sv))
+        err = 0.0
+        # last mode reads no transmission: one case covers it
+        for mode, label, tt in (("mid", "planes", t), ("mid", "phase", sv),
+                                ("last", "", None)):
+            got = row_bwd(mode, state, tt, sigma)
+            want = fa._plain_row_pass_bwd(mode, state, tt, sigma)
+            err = max(err, check(f"{key.upper()} {mode:4s} {label:6s} pairs",
+                                 got[0], want[0]))
+            check_rel(f"{key.upper()} {mode:4s} {label:6s} vbar", got[1],
+                      want[1])
+        del got, want
+        a, gout = state[:P].clone(), state[P:].clone()
+        v = torch.randn((nz, n, n), device=dev, generator=g) * 50.0
+        ks = np.fft.fftfreq(n, 0.1)
+        kw = dict(sigma=sigma, lam=lam, dz=0.5)
+        lam0, vbar = chain(a, gout, v, ks, ks, **kw)
+        lam0_p, vbar_p = fa.fused_adjoint_chain_plain(a, gout, v, ks, ks,
+                                                      **kw)
+        check(f"{key.upper()} chain ({nz} slices) lambda_0", lam0, lam0_p)
+        check_rel(f"{key.upper()} chain ({nz} slices) vbar", vbar, vbar_p)
+        chain_ms = (cuda_ms(lambda: chain(a, gout, v, ks, ks, **kw), reps=3),
+                    cuda_ms(lambda: fa.fused_adjoint_chain_plain(
+                        a, gout, v, ks, ks, **kw), reps=3))
+        print(f"  {key.upper()} chain at {P}x{n}^2x{nz}: {chain_ms[0]:.3f} ms,"
+              f" plain {chain_ms[1]:.3f} ms")
+        del a, gout, v, lam0, vbar, lam0_p, vbar_p
+        vb = torch.empty((n, n), device=dev)
+        timing = (cuda_ms(lambda: row_bwd("mid", state, t, sigma, out=state,
+                                          vbar=vb)),
+                  cuda_ms(lambda: fa._plain_row_pass_bwd("mid", state, t,
+                                                         sigma)))
+        records.update(records_for({key: err}, {key: timing},
+                                   f"{P} pairs x {n}^2, mid"))
+        del state
+    return records
+
+
+class counted_calls:
+    """Wrap ``owner.name`` (a method or a module function) so that every
+    call runs with the launch counts set to 0 just before it and read just
+    after, with its wall time (synchronized); ``log`` holds (counts,
+    seconds) per call. Restores the original on exit."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.log = owner, name, []
+
+    def __enter__(self):
+        import torch
+        from pyslice_tpu_torch.ops import fused_step as fs
+        orig = self.orig = getattr(self.owner, self.name)
+        log = self.log
+
+        def counted(*args, **kwargs):
+            for k in fs.launches:
+                fs.launches[k] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            log.append((dict(fs.launches), time.perf_counter() - t0))
+            return out
+
+        setattr(self.owner, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def require_step_counts(log, want, what):
+    for i, (counts, _) in enumerate(log):
+        require(counts == want, f"{what} step {i}: launches {counts}, "
+                f"expected {want}")
+
+
+def step_want(keys, nz):
+    """Launches of one gradient step of a 16-position minibatch on a
+    chain family (forward A/K4 nz, B/K5 nz-1; backward entry A/K4 1,
+    B/K5 nz-1, K7/K8 nz-1)."""
+    from pyslice_tpu_torch.ops import fused_step as fs
+    row, col, bwd = keys
+    want = dict.fromkeys(fs.launches, 0)
+    want.update({row: nz + 1, col: 2 * (nz - 1), bwd: nz - 1})
+    return want
+
+
+def msp_phase(dev, card, lx, grid, keys, scan=MSP_SCAN, batch=MSP_BATCH,
+              steps=MSP_STEPS):
+    """Phase 10: multislice ptychography on frame 0 of the hBN box of side
+    lx. Returns (K7/K8 launches of the kernel run, the data, the
+    calculator, the trajectory)."""
+    import numpy as np
+    import torch
+    import pyslice_tpu_torch as pt
+    from pyslice_tpu_torch.analysis import ptychography as ptycho
+    from pyslice_tpu_torch.core.dtypes import SINGLE
+    from pyslice_tpu_torch.ops import config as ops_config
+    from pyslice_tpu_torch.ops import fused_step as fs
+
+    traj = hbn_box(lx, 1)
+    calc = pt.MultisliceCalculator(device=dev)
+    # a dense scan at the box centre: neighbouring probes (~1 A wide at
+    # 30 mrad) overlap, so every minibatch constrains the same region
+    half = 0.5 * MSP_STEP_A * (scan - 1)
+    span = [0.5 * lx - half, 0.5 * lx + half]
+    calc.setup(traj, aperture=30.0, voltage_eV=100e3, sampling=0.1,
+               slice_thickness=0.5,
+               probe_positions=pt.probe_grid(span, span, scan, scan),
+               device_output=True, use_cache=False)
+    require((calc.nx, calc.ny) == (grid, grid), f"expected {grid}^2")
+    nz = calc.nz
+    wf = calc.run(progress=False)
+    data = (wf.wavefunction_data[:, 0, :, :, 0].abs() ** 2).cpu().numpy()
+    positions = np.asarray(calc.probe_positions, np.float64)
+    probe = calc.base_probe
+    print(f"  data: {data.shape[0]} positions, {grid}^2, {nz} slices, "
+          "from the kernel forward")
+
+    # Gradients of one minibatch loss at half the frame's potential. At
+    # V = 0 the dark-field model pixels are roundoff, and so is their part
+    # of the gradient; near the solution the gradient is a small remainder
+    # of cancelling terms. Float32 against float64 on the CPU at 256^2, the
+    # probe gradient's max|d|/max|ref| is 1.6 at V = 0, 1.3e-4 at 0.5 V and
+    # 6.7e-4 at 0.9 V.
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    amps = f32(ptycho._detector_amplitudes(data))
+    first = ptycho._epoch_batches(len(positions), batch, 1, 0)[0]
+    idx = torch.as_tensor(first, device=dev).long()
+    v_true = pt.rasterize(torch.as_tensor(traj.positions[0], device=dev),
+                          calc.spec.plan)
+    kx, ky = f32(probe.kxs), f32(probe.kys)
+
+    def grads():
+        v = (0.5 * v_true).requires_grad_()
+        modes = probe.array[None].clone().requires_grad_()
+        val = ptycho._msp_loss(v, modes, f32(positions)[idx], amps[idx], kx,
+                               ky, eV=100e3, dz=0.5, prec=SINGLE,
+                               loss="amplitude", reg_tv=0.0)
+        return torch.autograd.grad(val, [v, modes])
+
+    for k in fs.launches:
+        fs.launches[k] = 0
+    g_kernel = grads()
+    torch.cuda.synchronize()
+    counts = dict(fs.launches)
+    require(counts == step_want(keys, nz),
+            f"gradient launches {counts}, expected {step_want(keys, nz)}")
+    ops_config.fused_multislice = "off"
+    try:
+        g_plain = grads()
+    finally:
+        ops_config.fused_multislice = "auto"
+    for name, a, b in zip(("dL/dV", "dL/dprobe"), g_kernel, g_plain):
+        d, rel, _ = errors(a, b)
+        print(f"  {name}, kernels vs plain path: max|d| {d:.3e}  "
+              f"max|d|/max|ref| {rel:.3e}")
+        require(rel <= GRAD_REL, f"{name} disagrees between the paths")
+    del g_kernel, g_plain
+
+    times = {}
+    k_bwd = 0
+    for label, flag in (("kernels", "auto"), ("plain torch.fft", "off")):
+        ops_config.fused_multislice = flag
+        try:
+            with counted_calls(ptycho._MspRun, "step") as c:
+                rec = pt.msp_reconstruct(data, positions, probe,
+                                         n_slices=nz, dz=0.5, batch=batch,
+                                         steps=steps)
+        finally:
+            ops_config.fused_multislice = "auto"
+        losses = rec["losses"]
+        print(f"  {label}: losses {np.array2string(losses, precision=6)}; "
+              f"launches a step {c.log[0][0]}")
+        require(len(c.log) == steps, "msp_reconstruct took another step count")
+        require_step_counts(c.log, step_want(keys, nz) if flag == "auto"
+                            else dict.fromkeys(fs.launches, 0), label)
+        require(np.isfinite(losses).all() and losses[-1] < losses[0],
+                f"{label}: losses not finite and falling")
+        require(np.isfinite(rec["potential"]).all(), "non-finite potential")
+        times[label] = float(np.median([s for _, s in c.log]))
+        if flag == "auto":
+            k_bwd = sum(counts[keys[2]] for counts, _ in c.log)
+    print(f"  s/step, median of {steps} ({batch} positions x {grid}^2 x {nz} "
+          f"slices): kernels {times['kernels']:.4f}, plain torch.fft "
+          f"{times['plain torch.fft']:.4f}; card {card}")
+    return k_bwd, data, calc, traj
+
+
+def refine_phase(data, calc, traj, steps=REFINE_STEPS, batch=MSP_BATCH):
+    """Phase 11: refine_structure from frame 0 jittered by 0.02 A in plane;
+    every step's launches checked. Returns the K7 launches."""
+    import numpy as np
+    import pyslice_tpu_torch as pt
+    from pyslice_tpu_torch.engine import inverse
+
+    pos0 = np.array(traj.positions[0], np.float64)
+    pos0[:, :2] += np.random.default_rng(0).normal(0, 0.02,
+                                                   (len(pos0), 2))
+    with counted_calls(inverse, "_step") as c:
+        rec = pt.refine_structure(data, np.asarray(calc.probe_positions),
+                                  calc.base_probe, pos0, traj.atom_types,
+                                  calc.zs, steps=steps, batch=batch)
+    print(f"  {len(pos0)} atoms, losses "
+          f"{np.array2string(rec['losses'], precision=6)}; launches a step "
+          f"{c.log[0][0]}; s/step {np.median([s for _, s in c.log]):.4f}")
+    require(len(c.log) == steps, "refine_structure took another step count")
+    require_step_counts(c.log, step_want(("a", "b", "k7"), calc.nz),
+                        "refine_structure")
+    require(np.isfinite(rec["losses"]).all()
+            and np.isfinite(rec["positions"]).all(), "non-finite refinement")
+    return sum(counts["k7"] for counts, _ in c.log)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -506,8 +770,19 @@ def main():
                                        fast_grid=True, grid=1024)
     print(f"[8] STEM at {N_ODD}^2 (kernels K4, K5):")
     odd = odd_stem_phase(dev, card, traj)
+    print(f"[9] adjoint kernels K7 at {N_PROBES} pairs x {N_GRID}^2, K8 at "
+          f"{N_PROBES} pairs x {N_ODD}^2, and the adjoint chains:")
+    records.update(adjoint_kernel_phase(dev))
+    print(f"[10a] multislice ptychography at {N_GRID}^2 (A, B, K7):")
+    k7, data, calc, traj = msp_phase(dev, card, 102.35, N_GRID,
+                                     ("a", "b", "k7"))
+    print(f"[10b] multislice ptychography at {N_ODD}^2 (K4, K5, K8):")
+    k8, *_ = msp_phase(dev, card, 102.25, N_ODD, ("k4", "k5", "k8"))
+    print(f"[11] refine_structure at {N_GRID}^2 (A, B, K7):")
+    k7 += refine_phase(data, calc, traj)
+    del data, calc
     counts.update(k4=odd["k4"], k5=odd["k5"], k6_mixed=k6_mixed,
-                  k6_pow2=k6_pow2)
+                  k6_pow2=k6_pow2, k7=k7, k8=k8)
     for k, rec in records.items():
         rec["launches"] = counts[k]
     print(json.dumps({"kernels": [records[k] for k in KERNELS]}))

@@ -33,6 +33,13 @@ class Precision:
     def name(self) -> str:
         return "double" if self.real == torch.float64 else "single"
 
+    @property
+    def np_real(self) -> np.dtype:
+        """The NumPy type of ``real``, for host arrays made in the run
+        precision."""
+        return np.dtype(np.float64 if self.real == torch.float64
+                        else np.float32)
+
 
 SINGLE = Precision(real=torch.float32, complex=torch.complex64)
 DOUBLE = Precision(real=torch.float64, complex=torch.complex128)

@@ -16,9 +16,9 @@ Counterpart of ``pyslice_tpu/engine/calculator.py`` (reference
   ``probe_positions`` after ``setup`` is honoured.
 * ``batch_size`` bounds the probes propagated per call.
 
-Not ported yet: ``mesh=`` (multi-GPU) and ``aberrations=`` raise
-``NotImplementedError``; ``frame_block`` is gone, since eager PyTorch has
-no per-dispatch program to amortize.
+Not ported yet: ``mesh=`` (multi-GPU) raises ``NotImplementedError``;
+``frame_block`` is gone, since eager PyTorch has no per-dispatch program to
+amortize.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from ..analysis.wf_data import WFData, to_numpy
 from ..core.dtypes import get_precision
 from ..core.grids import grid_from_trajectory
 from ..data.trajectory import Trajectory
+from ..physics.aberrations import Aberrations
 from ..physics.potential import make_plan
 from ..physics.probe import Probe, create_batched_probes
 from .pipeline import SimSpec, frame_exit_waves, simulate_frames_into
@@ -75,6 +76,8 @@ class MultisliceCalculator:
             params["bandwidth_limit"] = self.bandwidth_limit
         if self.tilt is not None:
             params["tilt"] = self.tilt
+        if self.aberrations is not None:
+            params["aberrations"] = repr(self.aberrations)
         if self.debye_waller:
             params["debye_waller"] = sorted(
                 (str(k), float(v)) for k, v in self.debye_waller.items())
@@ -104,15 +107,16 @@ class MultisliceCalculator:
               debye_waller=None):
         """Reference-compatible setup (calculators.py:96-161); see the JAX
         package's docstring for ``batch_size``, ``bandwidth_limit``,
-        ``tilt`` and ``debye_waller``."""
+        ``tilt`` and ``debye_waller``. ``aberrations``: an
+        ``Aberrations`` or a dict of its coefficients, applied to the base
+        probe after ``defocus``."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (multi-GPU runs) is not ported yet (ROADMAP queue 1, "
                 "item 11: Multi-GPU)")
-        if aberrations is not None:
-            raise NotImplementedError(
-                "aberrations= needs physics/aberrations.py, which is not "
-                "ported yet (ROADMAP queue 1, item 4: Probe / aberrations)")
+        if isinstance(aberrations, dict):
+            aberrations = Aberrations(**aberrations)
+        self.aberrations = aberrations
         self.trajectory = trajectory
         self.aperture = aperture
         self.voltage_eV = voltage_eV
@@ -154,6 +158,8 @@ class MultisliceCalculator:
                                 ksq=grid.ksq2d() if oblique else None)
         if defocus:
             self.base_probe.defocus(defocus)
+        if aberrations is not None:
+            self.base_probe.aberrate(aberrations)
         self._batched_probes = None
 
         self.debye_waller = dict(debye_waller) if debye_waller else None

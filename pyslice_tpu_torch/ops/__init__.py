@@ -27,7 +27,14 @@ Kernel map (``pyslice_tpu/ops`` Pallas kernel -> this package):
   (#8). Entry points:
   ``fused_step_resident.fused_multislice[_kspace]_resident`` and
   ``fused_step_odd_resident.fused_multislice[_kspace]_odd_resident``.
-* ``fused_step_adjoint`` (#9, #10) is not ported yet.
+* ``fused_step_adjoint._kernel_a_bwd`` (#9) and ``_kernel_a_bwd_odd``
+  (#10) -> K7 ``fused_step_adjoint.row_pass_bwd`` (``csrc/
+  fused_step_adjoint.cu``, radix-16 engine) and K8 ``row_pass_mr_bwd``
+  (``csrc/fused_step_adjoint_odd.cu``, Stockham engine), one template
+  (``csrc/tiles.cuh``: ``pair_row_tile``). Chains
+  ``fused_step_adjoint.fused_adjoint_chain[_odd]`` reuse A / K4
+  (``first``) and B / K5 with conj(t) and conj(P); entry point
+  ``physics.adjoint.multislice_diff``.
 """
 
 

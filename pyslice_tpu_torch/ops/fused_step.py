@@ -56,8 +56,10 @@ from ..core.dtypes import SINGLE, as_real
 
 # Launches of each kernel since the last reset (the wrappers add one per
 # launch; nothing else touches them): A, B, C here, K4 and K5 in
-# ops.fused_step_odd, K6 in ops.fused_step_resident.
-launches = {"a": 0, "b": 0, "c": 0, "k4": 0, "k5": 0, "k6": 0}
+# ops.fused_step_odd, K6 in ops.fused_step_resident, K7 and K8 in
+# ops.fused_step_adjoint.
+launches = {"a": 0, "b": 0, "c": 0, "k4": 0, "k5": 0, "k6": 0, "k7": 0,
+            "k8": 0}
 
 # Above this many bytes for the (nz, nx, ny) complex64 transmission stack,
 # kernel A takes sigma*V and evaluates cos/sin itself: half the memory, at
@@ -67,7 +69,8 @@ PRECOMPUTE_T_MAX_BYTES = 2 << 30
 ROW_MODES = {"first": 0, "mid": 1, "last": 2, "only": 3}
 
 _CSRC = Path(__file__).parent / "csrc"
-SOURCES = ("fused_step", "fused_step_odd", "resident")
+SOURCES = ("fused_step", "fused_step_odd", "resident", "fused_step_adjoint",
+           "fused_step_adjoint_odd")
 _BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -155,13 +158,15 @@ _ARGTYPES = {
     "fs_row_pass_mr": "pppppiiiip",
     "fs_col_pass_mr": "ppppiiip",
     "fs_resident_loop": "ppppppppiiiiiiipp",
+    "fs_row_pass_bwd": "ppppppiiiifp",
+    "fs_row_pass_bwd_mr": "ppppppiiiifp",
 }
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the argument and result types of the C functions the
-    library exports ('p' a pointer, 'i' an int)."""
-    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+    library exports ('p' a pointer, 'i' an int, 'f' a float)."""
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
     for name, sig in _ARGTYPES.items():
         fn = getattr(lib, name, None)
         if fn is not None:
@@ -188,6 +193,12 @@ def _twiddles(n: int, device: torch.device, full: bool = False
 
 def _check_cuda(x: torch.Tensor, name: str, shape, dtype,
                 device=None) -> None:
+    # A lazily conjugated or negated view keeps its data unconjugated and
+    # only sets a bit; a kernel reading data_ptr() would miss it.
+    if x.is_conj() or x.is_neg():
+        raise ValueError(f"{name} is a lazily conjugated or negated view: "
+                         "pass torch.conj_physical(...) or resolve it first "
+                         "(.resolve_conj() / .resolve_neg())")
     if not x.is_cuda or (device is not None and x.device != device):
         raise ValueError(f"{name} must be a CUDA tensor on "
                          f"{device or 'the card'}, got {x.device}")

@@ -10,13 +10,15 @@ Physics:
   space, probe = ifftshift(ifft2(mask)) — an Airy disk;
 * defocus: one signed multiply by the Fresnel kernel in k space (dz < 0
   back-propagates; ``compat_reference=True`` keeps the reference's double
-  negation, quirk 13);
+  negation, quirk 13); ``Probe.aberrate`` applies the full aberration
+  surface (``physics.aberrations``);
 * positioning: k-space phase ramp exp(+2 pi i k . p) per position, which
   displaces the probe by -p (quirk 14, kept for parity).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 
 import numpy as np
@@ -24,6 +26,7 @@ import torch
 
 from ..core.constants import wavelength as _wavelength
 from ..core.dtypes import as_real, get_precision
+from .aberrations import Aberrations, apply_aberrations
 
 
 def _phase_to_complex(phase: torch.Tensor) -> torch.Tensor:
@@ -169,9 +172,17 @@ class Probe:
                              compat_reference=compat_reference, ksq=self.ksq)
 
     def aberrate(self, aberrations=None, **coeffs) -> None:
-        raise NotImplementedError(
-            "Probe.aberrate needs physics/aberrations.py, which is not "
-            "ported yet (ROADMAP queue 1, item 4: Probe / aberrations)")
+        """In-place aberration surface: an ``aberrations.Aberrations`` or
+        its coefficients as keywords (C1/A1/phi_A1/B2/phi_B2/A2/phi_A2/C3/
+        A3/phi_A3/C5, Angstrom / radians). ``aberrate(C1=dz)`` is
+        ``defocus(dz)``."""
+        if aberrations is None:
+            aberrations = Aberrations(**coeffs)
+        elif coeffs:
+            aberrations = dataclasses.replace(aberrations, **coeffs)
+        self.array = apply_aberrations(self.array, self.kxs, self.kys,
+                                       self.wavelength, aberrations,
+                                       self.precision, ksq=self.ksq)
 
     def shifted_batch(self, positions) -> "Probe":
         """New Probe whose array is the (n_probes, nx, ny) shifted batch."""

@@ -189,6 +189,30 @@ def multislice(psi, potential_szy, kxs, kys, *, eV: float,
                              tantilt=tantilt)
 
 
+def propagator(kxs, kys, lam: float, dz: float, prec: Precision, device,
+               ksq=None, tantilt=None, kmax2=None) -> torch.Tensor:
+    """The (nx, ny) Fresnel multiplier of one slice step in the precision's
+    types: exp(-i pi lam dz k^2), ``ksq`` replacing kx^2 + ky^2 on oblique
+    cells, times the beam-tilt phase (``tantilt``), band-limited to
+    k^2 <= ``kmax2``."""
+    if ksq is not None:
+        k2 = as_real(ksq, prec, device)
+        phase = (-np.pi * lam * dz) * k2
+        P = torch.complex(torch.cos(phase), torch.sin(phase))
+    else:
+        kx = as_real(kxs, prec, device)
+        ky = as_real(kys, prec, device)
+        k2 = kx[:, None] ** 2 + ky[None, :] ** 2
+        P = fresnel_kernel(kx, ky, lam, dz, prec, device=device)
+        if tantilt is not None:
+            tph = (2.0 * np.pi * dz) * (kx[:, None] * tantilt[0]
+                                        + ky[None, :] * tantilt[1])
+            P = P * torch.complex(torch.cos(tph), torch.sin(tph))
+    if kmax2 is not None:
+        P = P * (k2 <= kmax2).to(prec.real)
+    return P
+
+
 def _multislice_plain(psi, potential_szy, kxs, kys, *, sigma, lam, dz,
                       record_layers, prec: Precision, ksq, kmax2, tantilt
                       ) -> torch.Tensor:
@@ -197,21 +221,7 @@ def _multislice_plain(psi, potential_szy, kxs, kys, *, sigma, lam, dz,
     psi = psi.to(prec.complex)
     potential_szy = potential_szy.to(device=dev, dtype=prec.real)
     nz = potential_szy.shape[0]
-    if ksq is not None:
-        k2 = as_real(ksq, prec, dev)
-        phase = (-np.pi * lam * dz) * k2
-        P = torch.complex(torch.cos(phase), torch.sin(phase))
-    else:
-        kx = as_real(kxs, prec, dev)
-        ky = as_real(kys, prec, dev)
-        k2 = kx[:, None] ** 2 + ky[None, :] ** 2
-        P = fresnel_kernel(kx, ky, lam, dz, prec, device=dev)
-        if tantilt is not None:
-            tph = (2.0 * np.pi * dz) * (kx[:, None] * tantilt[0]
-                                        + ky[None, :] * tantilt[1])
-            P = P * torch.complex(torch.cos(tph), torch.sin(tph))
-    if kmax2 is not None:
-        P = P * (k2 <= kmax2).to(prec.real)
+    P = propagator(kxs, kys, lam, dz, prec, dev, ksq, tantilt, kmax2)
 
     def transmit(p, v_slice):
         return transmission(v_slice, sigma, prec) * p

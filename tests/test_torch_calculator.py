@@ -174,8 +174,6 @@ def test_unported_options_raise():
     calc = tt.MultisliceCalculator(device="cpu")
     with pytest.raises(NotImplementedError, match="Multi-GPU"):
         calc.setup(ttraj, mesh=object())
-    with pytest.raises(NotImplementedError, match="aberrations"):
-        calc.setup(ttraj, aberrations={"C3": 1e4})
 
 
 def test_wfdata_save_load_roundtrip(tmp_path):

@@ -1,11 +1,13 @@
 """The port's CUDA kernels (A, B, C; K4, K5 of the mixed-radix chain; K6,
-the resident slice loop) against their plain torch.fft versions, on the
-card. Every test needs a CUDA device and skips without
+the resident slice loop; K7, K8 of the adjoint's backward chain) against
+their plain torch.fft versions, on the card. Every test needs a CUDA device and skips without
 one. The machine with the card has no JAX, so run this file there without
 the JAX-side conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -230,3 +232,157 @@ def test_mr_wrappers_raise_on_ineligible_cuda_tensors(dev):
         fr.resident_loop(_wave(dev, 1, 387, 387),
                          torch.zeros((1, 387, 387), device=dev),
                          _prop(dev, 387, 387))
+
+
+# --- K7, K8 (the adjoint's backward row passes) and the adjoint chains -------
+
+from pyslice_tpu_torch.ops import fused_step_adjoint as fa  # noqa: E402
+from pyslice_tpu_torch.physics import adjoint as adj  # noqa: E402
+
+
+def _bwd_ok(got, want):
+    """The pair stream as every kernel output; vbar to max|d|/max|ref|."""
+    (st, vb), (st_ref, vb_ref) = got, want
+    _ok(st, st_ref)
+    rel, _ = _errors(vb, vb_ref)
+    assert rel <= MAX_REL, rel
+
+
+def _check_bwd(dev, row_bwd, key, P, nx, ny, mode, phase):
+    state = _wave(dev, 2 * P, nx, ny)
+    sv = _phase(dev, nx, ny)
+    t = None if mode == "last" else (
+        sv if phase else torch.complex(torch.cos(sv), torch.sin(sv)))
+    n0 = fs.launches[key]
+    got = row_bwd(mode, state, t, SIGMA)
+    assert fs.launches[key] == n0 + 1
+    _bwd_ok(got, fa._plain_row_pass_bwd(mode, state, t, SIGMA))
+    buf = state.clone()
+    vb = torch.empty((nx, ny), device=dev)
+    out = row_bwd(mode, buf, t, SIGMA, out=buf, vbar=vb)     # in place
+    assert out[0] is buf and out[1] is vb
+    _bwd_ok(out, got)
+
+
+BWD_SHAPES = [(128, 128), (256, 512), (1024, 1024), (4096, 128), (128, 4096)]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("P", [1, 16])
+@pytest.mark.parametrize("mode,phase", [("mid", False), ("mid", True),
+                                        ("last", False)])
+def test_row_pass_bwd_matches_plain(dev, shape, P, mode, phase):
+    _check_bwd(dev, fa.row_pass_bwd, "k7", P, *shape, mode, phase)
+
+
+@pytest.mark.parametrize("n", MR_SIZES)
+@pytest.mark.parametrize("P", [1, 16])
+@pytest.mark.parametrize("mode,phase", [("mid", False), ("mid", True),
+                                        ("last", False)])
+def test_row_pass_mr_bwd_matches_plain(dev, n, P, mode, phase):
+    _check_bwd(dev, fa.row_pass_mr_bwd, "k8", P, 387 if n != 387 else 258,
+               n, mode, phase)
+
+
+@pytest.mark.parametrize("kind,n", [("aligned", 512), ("odd", 387),
+                                    ("odd", 1023)])
+@pytest.mark.parametrize("P", [1, 16])
+@pytest.mark.parametrize("nz", [2, 14])
+def test_adjoint_chains_match_plain(dev, kind, n, P, nz):
+    a = _wave(dev, P, n, n, seed=5)
+    g = _wave(dev, P, n, n, seed=6)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    v = torch.randn((nz, n, n), device=dev, generator=gen) * 50
+    ks = np.fft.fftfreq(n, 0.1)
+    kw = dict(sigma=SIGMA, lam=LAM, dz=0.5, tantilt=(0.003, -0.001))
+    chain = (fa.fused_adjoint_chain if kind == "aligned"
+             else fa.fused_adjoint_chain_odd)
+    keys = ("a", "b", "k7") if kind == "aligned" else ("k4", "k5", "k8")
+    before = dict(fs.launches)
+    got = chain(a, g, v, ks, ks, **kw)
+    assert tuple(fs.launches[k] - before[k] for k in keys) == (1, nz - 1,
+                                                               nz - 1)
+    want = fa.fused_adjoint_chain_plain(a, g, v, ks, ks, **kw)
+    _bwd_ok(got, want)
+
+
+@pytest.mark.parametrize("n,keys", [(1024, ("a", "b", "k7")),
+                                    (1023, ("k4", "k5", "k8"))])
+def test_multislice_diff_backward_runs_the_kernels(dev, n, keys):
+    """Gradients of an intensity loss through the kernels (forward chain
+    and adjoint chain) against the plain path's. Four probes at ~1024^2
+    take the two-pass chains forward (above the resident crossover)."""
+    from pyslice_tpu_torch.ops import config
+
+    psi = _wave(dev, 4, n, n, seed=8)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    v0 = torch.randn((6, n, n), device=dev, generator=gen) * 30
+    w = torch.rand((n, n), device=dev, generator=gen)
+    ks = np.fft.fftfreq(n, 0.1)
+
+    def grads():
+        p = psi.clone().requires_grad_()
+        v = v0.clone().requires_grad_()
+        out = adj.multislice_diff(p, v, ks, ks, eV=100e3, dz=0.5)
+        loss = torch.sum(w * torch.abs(torch.fft.fft2(out)) ** 2)
+        return torch.autograd.grad(loss, [p, v])
+
+    before = dict(fs.launches)
+    got = grads()
+    nz = 6
+    assert tuple(fs.launches[k] - before[k] for k in keys) == (
+        nz + 1, 2 * (nz - 1), nz - 1)
+    config.fused_multislice = "off"
+    try:
+        want = grads()
+    finally:
+        config.fused_multislice = "auto"
+    for x, r in zip(got, want):
+        torch.cuda.synchronize()
+        rel, _ = _errors(x, r)
+        assert rel <= 1e-3, rel
+
+
+def test_kernels_refuse_lazily_conjugated_views(dev):
+    psi = _wave(dev, 2, 128, 128)
+    prop = _prop(dev, 128, 128)
+    with pytest.raises(ValueError, match="lazily conjugated"):
+        fs.col_pass(psi, torch.conj(prop))
+    with pytest.raises(ValueError, match="lazily conjugated"):
+        fa.row_pass_bwd("mid", psi, torch.conj(prop), SIGMA)
+
+
+def test_adjoint_launch_error_raises(dev, monkeypatch):
+    """A launch that the runtime refuses raises, in the wrapper and in the
+    backward that runs it: nothing falls back to the plain path."""
+    class FailingLib:
+        @staticmethod
+        def fs_row_pass_bwd(*args):
+            return 700
+
+    real = fs.build()
+    fake = dataclasses.replace(
+        real, libs=dict(real.libs, fused_step_adjoint=FailingLib()))
+    monkeypatch.setattr(fa, "build", lambda: fake)
+    psi = _wave(dev, 2, 128, 128)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.row_pass_bwd("last", psi, None, SIGMA)
+    v = torch.zeros((3, 128, 128), device=dev, requires_grad=True)
+    ks = np.fft.fftfreq(128, 0.1)
+    out = adj.multislice_diff(_wave(dev, 4, 128, 128), v, ks, ks, eV=100e3,
+                              dz=0.5)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        out.abs().sum().backward()
+
+
+def test_build_error_raises(dev, monkeypatch, tmp_path):
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(fs._CSRC, csrc)
+    (csrc / "fused_step_adjoint.cu").write_text("this is not C++\n")
+    monkeypatch.setattr(fs, "_CSRC", csrc)
+    monkeypatch.setattr(fs, "_BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(fs, "SOURCES", ("fused_step_adjoint",))
+    monkeypatch.setattr(fs, "_build", None)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fs.build()

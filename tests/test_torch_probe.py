@@ -99,5 +99,6 @@ def test_probe_class_and_batch_equal_jax():
     assert _rel(tb.to_cpu(), jb.to_cpu()) <= 1e-12
     c = tb.copy()
     assert c.array is not tb.array and torch.equal(c.array, tb.array)
-    with pytest.raises(NotImplementedError, match="aberrations"):
-        tp.aberrate(C1=10.0)
+    tp.aberrate(C1=10.0, C3=2e4)
+    jp.aberrate(C1=10.0, C3=2e4)
+    assert _rel(tp.to_cpu(), jp.to_cpu()) <= 1e-12
