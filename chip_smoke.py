@@ -12,8 +12,10 @@ Phases, each printing one line (or a few) and failing hard:
    max|d|/max|ref| <= 1e-4 and the magnitude residual
    sum((|F|-|D|)^2)/sum(|F|^2) <= 1e-6;
 4. the mixed-radix kernels the same way: K4 (every mode) and K5 at
-   16 x 1023^2, K6 (the resident slice loop) at 1 x 1023^2 and 1 x 1024^2,
-   exit wave and k space, and one depth-recording chain each;
+   16 x 1023^2 (K5 also at 32 planes, the adjoint's pair stream, with its
+   tile plan and persistent grid), K6 (the resident slice loop) at
+   1 x 1023^2 and 1 x 1024^2, exit wave and k space, and one
+   depth-recording chain each;
 5. STEM at 1024^2: an hBN monolayer filling a 102.35 A box (3,680 atoms,
    10 thermal frames) through MultisliceCalculator(device="cuda") at
    16 probes x 14 slices; A/B/C launch counts, the plain-path residual on
@@ -41,11 +43,20 @@ Phases, each printing one line (or a few) and failing hard:
    checked;
 12. a JSON line per kernel, the nvidia-smi line, and the final JSON line.
 
+Each kernel's record carries its bound: the least time an H100 could take
+for the launch timed, the larger of the bytes it must move (each input
+read once, each output written once) over the HBM rate and its floating-
+point operations over the FP32 rate (data sheet), with FFTs counted as
+5 n log2 n a length-n transform. No single PyTorch call computes any of
+these functions (each fuses FFT passes with a product, a reduction or a
+shifted store), so library_ms is null.
+
 Exits non-zero, printing no result, without a CUDA device or without the
 repository around it.
 """
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -84,6 +95,9 @@ MSP_SCAN, MSP_BATCH, MSP_STEPS = 8, 16, 5   # 64 positions, 16 a step
 MSP_STEP_A = 0.5             # scan step (A): neighbouring probes overlap
 REFINE_STEPS = 3
 GRAD_REL = 1e-3     # float32 gradients, kernel path against plain
+HBM_BYTES_S = 3.35e12   # H100 SXM, HBM3 (data sheet)
+FP32_FLOP_S = 67e12     # H100 SXM, float32 outside the tensor cores
+C64, F32 = 8, 4         # bytes of a complex64 and a float32 element
 
 
 def require(cond, what):
@@ -122,6 +136,36 @@ def cuda_ms(fn, reps=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def fft_flops(n):
+    """The conventional operation count of a length-n complex FFT."""
+    return 5.0 * n * math.log2(n)
+
+
+def kernel_bound(kind, P, n, nz=0):
+    """The bound of one launch on P planes (P pairs for "pairs") of n^2:
+    {"bound_ms", "bound_by", "bound", "library_ms"}. Kinds: "pass" (A mid,
+    B, K4 mid, K5: a transform each way and a product with one complex
+    plane), "kconvert" (C), "only" (A only with sigma*V; cos/sin not
+    counted), "resident" (K6, an nz-slice loop with a complex t stack),
+    "pairs" (K7, K8 mid: both members of each pair, and V-bar)."""
+    px = n * n
+    nbytes, flops = {
+        "pass": ((2 * P + 1) * px * C64, P * n * 2 * fft_flops(n) + 6 * P * px),
+        "kconvert": (2 * P * px * C64, P * n * fft_flops(n)),
+        "only": (2 * P * px * C64 + px * F32, 6 * P * px),
+        "resident": ((2 * P + nz + 1) * px * C64,
+                     P * (nz - 1) * 4 * n * fft_flops(n)
+                     + P * (2 * nz - 1) * 6 * px),
+        "pairs": ((4 * P + 1) * px * C64 + px * F32,
+                  2 * P * (n * 2 * fft_flops(n) + 6 * px) + 4 * P * px),
+    }[kind]
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    by_bytes = t_bytes >= t_ops
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if by_bytes else "operations",
+            "bound": "hbm" if by_bytes else "fp32", "library_ms": None}
 
 
 def card_line():
@@ -169,7 +213,8 @@ def kernel_phase(dev, P=N_PROBES, n=N_GRID, nz=N_SLICES):
     only_ms = (cuda_ms(lambda: fs.row_pass("only", buf, sv, out=buf)),
                cuda_ms(lambda: fs._plain_row_pass("only", buf, sv)))
     print(f"  A only, sigma*V in the kernel (the transmit kernel's work) at "
-          f"{P}x{n}^2: {only_ms[0]:.4f} ms, plain {only_ms[1]:.4f} ms")
+          f"{P}x{n}^2: {only_ms[0]:.4f} ms, plain {only_ms[1]:.4f} ms, "
+          f"bound {kernel_bound('only', P, n)['bound_ms']:.4f} ms")
     timings = {
         "a": (cuda_ms(lambda: fs.row_pass("mid", buf, t, out=buf)),
               cuda_ms(lambda: fs._plain_row_pass("mid", buf, t))),
@@ -178,20 +223,24 @@ def kernel_phase(dev, P=N_PROBES, n=N_GRID, nz=N_SLICES):
         "c": (cuda_ms(lambda: fs.kconvert(buf)),
               cuda_ms(lambda: fs._plain_kconvert(buf))),
     }
-    return records_for(errs, timings, f"{P}x{n}^2")
+    bounds = {"a": kernel_bound("pass", P, n), "b": kernel_bound("pass", P, n),
+              "c": kernel_bound("kconvert", P, n)}
+    return records_for(errs, timings, bounds, f"{P}x{n}^2")
 
 
-def records_for(errs, timings, shape):
+def records_for(errs, timings, bounds, shape):
     """JSON records (without launch counts) of the kernels in ``errs``."""
     records = {}
     for k, err in errs.items():
         name, src, replaces = KERNELS[k]
         ms, plain_ms = timings[k]
+        b = bounds[k]
         print(f"  {name} at {shape}: {ms:.4f} ms, plain torch.fft "
-              f"{plain_ms:.4f} ms")
+              f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound']})")
         records[k] = {"name": name, "route": "cuda", "source": CSRC + src,
                       "replaces": replaces, "max_abs_err": err,
-                      "ms": ms, "plain_ms": plain_ms}
+                      "ms": ms, "plain_ms": plain_ms, **b}
     return records
 
 
@@ -257,17 +306,39 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES):
         "k5": (cuda_ms(lambda: fo.col_pass_mr(buf, prop, out=buf)),
                cuda_ms(lambda: fs._plain_col_pass(buf, prop))),
     }
+    print(f"    K5 tile plan and persistent grid at {P}x{n}^2: "
+          f"{fo.last_launch}")
+    del buf
+    # K5 on 2P planes: the adjoint chain's pair stream
+    buf = torch.randn((2 * P, n, n), dtype=torch.complex64, device=dev,
+                      generator=g)
+    errs["k5"] = max(errs["k5"], check(
+        f"K5 {2 * P} planes", fo.col_pass_mr(buf, prop),
+        fs._plain_col_pass(buf, prop)))
+    k5_pairs = {"ms": cuda_ms(lambda: fo.col_pass_mr(buf, prop, out=buf)),
+                "plain_ms": cuda_ms(lambda: fs._plain_col_pass(buf, prop)),
+                "bound_ms": kernel_bound("pass", 2 * P, n)["bound_ms"]}
+    print(f"  K5 at {2 * P}x{n}^2: {k5_pairs['ms']:.4f} ms, plain "
+          f"{k5_pairs['plain_ms']:.4f} ms, bound {k5_pairs['bound_ms']:.4f} "
+          f"ms; plan and grid {fo.last_launch}")
+    del buf
     for key, (p1, tstack, pm) in loops.items():
         timings[key] = (
             cuda_ms(lambda: fr.resident_loop(p1, tstack, pm), reps=10),
             cuda_ms(lambda: fr._plain_resident_loop(p1, tstack, pm),
                     reps=10))
+    bounds = {"k4": kernel_bound("pass", P, n), "k5": kernel_bound("pass", P, n),
+              "k6_mixed": kernel_bound("resident", 1, n, nz),
+              "k6_pow2": kernel_bound("resident", 1, 1024, nz)}
     records = records_for({k: errs[k] for k in ("k4", "k5")}, timings,
-                          f"{P}x{n}^2")
+                          bounds, f"{P}x{n}^2")
+    records["k5"][f"at_{2 * P}_planes"] = k5_pairs
     records.update(records_for(
-        {"k6_mixed": errs["k6_mixed"]}, timings, f"1x{n}^2x{nz} slices"))
+        {"k6_mixed": errs["k6_mixed"]}, timings, bounds,
+        f"1x{n}^2x{nz} slices"))
     records.update(records_for(
-        {"k6_pow2": errs["k6_pow2"]}, timings, f"1x1024^2x{nz} slices"))
+        {"k6_pow2": errs["k6_pow2"]}, timings, bounds,
+        f"1x1024^2x{nz} slices"))
     return records
 
 
@@ -554,6 +625,7 @@ def adjoint_kernel_phase(dev, P=N_PROBES, nz=N_SLICES,
                   cuda_ms(lambda: fa._plain_row_pass_bwd("mid", state, t,
                                                          sigma)))
         records.update(records_for({key: err}, {key: timing},
+                                   {key: kernel_bound("pairs", P, n)},
                                    f"{P} pairs x {n}^2, mid"))
         del state
     return records

@@ -1,6 +1,7 @@
 // The per-tile work of the slice step, written once for both FFT engines
-// (Pow2Eng of fft_pow2.cuh, MixedEng of fft_mixed.cuh) and used by K4 and
-// K5 (fused_step_odd.cu) and by the resident slice loop K6 (resident.cu).
+// (Pow2Eng of fft_pow2.cuh, MixedEng of fft_mixed.cuh) and used by K4
+// (fused_step_odd.cu) and by the resident slice loop K6 (resident.cu); K5
+// has its own column tile (col_tile_async.cuh).
 //
 // An engine E gives: E::n, the axis length; row(i), the slot row of
 // element i in a tile (s[(row(i) << logc) + c]); kslot(k), the element

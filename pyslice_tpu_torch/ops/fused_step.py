@@ -156,7 +156,7 @@ _ARGTYPES = {
     "fs_col_pass": "ppppiiip",
     "fs_kconvert": "pppiiip",
     "fs_row_pass_mr": "pppppiiiip",
-    "fs_col_pass_mr": "ppppiiip",
+    "fs_col_pass_mr": "ppppiiiiipp",
     "fs_resident_loop": "ppppppppiiiiiiipp",
     "fs_row_pass_bwd": "ppppppiiiifp",
     "fs_row_pass_bwd_mr": "ppppppiiiifp",

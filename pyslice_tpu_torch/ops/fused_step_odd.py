@@ -12,15 +12,20 @@ grids (odd composite, e.g. 1023 = 3 * 11 * 31) and the n1*128 sizes
 The kernels (``csrc/fused_step_odd.cu``) run a mixed-radix Stockham FFT in
 shared memory (``csrc/fft_mixed.cuh``): natural order in and out, so the
 wave, the transmission planes and the Fresnel plane all stay in natural
-order and nothing is permuted. The JAX kernels' digit-split layouts and
-scrambled frequency order were limits of Pallas on the TPU and are not
-ported. There is no fused k-space conversion on this chain (the JAX
+order and nothing is permuted. K5 runs as persistent blocks whose
+producer warps store the previous column tile and copy the next one into
+shared memory (``cp.async``) while the consumer warps transform the
+current one (``csrc/col_tile_async.cuh``); its tile width and consumer
+count are the host's plan, ``col_tile_plan``. The JAX kernels'
+digit-split layouts and scrambled frequency order were limits of Pallas
+on the TPU and are not ported. There is no fused k-space conversion on this chain (the JAX
 package has none either): ``engine.pipeline`` converts its exit wave with
 ``torch.fft``.
 
 Each wrapper takes its plain ``torch.fft`` version (kernel A's and B's) for
 a tensor on the CPU, and for a CUDA tensor launches its kernel or raises.
-``launches["k4"]`` / ``launches["k5"]`` count the kernel launches.
+``launches["k4"]`` / ``launches["k5"]`` count the kernel launches;
+``last_launch`` holds K5's last plan and persistent grid.
 
 Sizes (``supported_size_mr``): every axis the JAX package gives a kernel,
 up to 4096 (the engine's shared-memory limit): the JAX odd kernels' rule
@@ -31,6 +36,9 @@ plain path.
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
 
 import torch
 
@@ -99,6 +107,83 @@ def supported_size_mr(n: int, n_probes: int = None) -> bool:
 MR_SIZES = "the JAX kernels' sizes up to 4096"
 
 
+# --- K5's tile plan ------------------------------------------------------------
+
+# K5's limits (csrc/fused_step_odd.cu): consumer threads a block (its
+# __launch_bounds__ of 384, less three producer warps), tile buffers, and
+# the shared memory a block may opt in to on an H100 (227 KB).
+K5_THREADS = 288
+K5_BUFFERS = 3
+SMEM_MAX = 232448
+K5_MAX_LOGC = 3
+
+# K5's last launch: the plan (cols, threads, busy) and the grid the
+# occupancy query gave (grid, blocks_per_sm, sms, smem_bytes).
+last_launch = {}
+
+
+def stage_radices(n: int) -> list:
+    """The Stockham stages of an axis of n, in order (``make_plan`` of
+    ``csrc/fft_mixed.cuh``): 16s, then one each of 8, 4, 2, then the odd
+    primes 31 down to 3, then any larger prime."""
+    f, m = [], n
+    while m % 16 == 0:
+        f.append(16)
+        m //= 16
+    for r in (8, 4, 2):
+        if m % r == 0:
+            f.append(r)
+            m //= r
+    for r in (31, 29, 23, 19, 17, 13, 11, 7, 5, 3):
+        while m % r == 0:
+            f.append(r)
+            m //= r
+    r = 37
+    while m > 1:
+        while m % r == 0:
+            f.append(r)
+            m //= r
+        r += 2
+    return f
+
+
+@dataclasses.dataclass(frozen=True)
+class ColTilePlan:
+    logc: int           # the tile is 2^logc columns
+    threads: int        # a block's consumer threads (and three producer warps)
+    smem_bytes: int     # K5_BUFFERS tile buffers and the twiddle table
+    tiles: int          # (probe, column tile) pairs
+    busy: float         # share of the threads busy in the fewest-item stage
+
+    @property
+    def cols(self) -> int:
+        return 1 << self.logc
+
+
+def _k5_smem(n: int, logc: int) -> int:
+    """K5's shared memory: the tile buffers and the twiddle table."""
+    return 8 * (K5_BUFFERS * (n << logc) + n)
+
+
+def col_tile_plan(n: int, n_probes: int, ny: int = None) -> ColTilePlan:
+    """K5's tile on an axis of n (nx) for n_probes x ny columns (ny = n by
+    default): the widest tile, up to 8 columns, whose K5_BUFFERS buffers
+    fit SMEM_MAX beside the n-entry twiddle table, and K5_THREADS consumer
+    threads. ``busy`` is their share that works in the stage with the
+    fewest items (a radix-R stage in registers has n/R items a column, a
+    larger prime n). At 1023 = 3 * 11 * 31: 8 columns, 264 radix-31 items
+    on 288 threads, 92% busy."""
+    ny = n if ny is None else ny
+    logc = K5_MAX_LOGC
+    while logc > 0 and _k5_smem(n, logc) > SMEM_MAX:
+        logc -= 1
+    items = min((n // r if r <= 31 else n) << logc for r in stage_radices(n))
+    busy = items / (K5_THREADS * -(-items // K5_THREADS))
+    return ColTilePlan(logc=logc, threads=K5_THREADS,
+                       smem_bytes=_k5_smem(n, logc),
+                       tiles=n_probes * -(-ny // (1 << logc)), busy=busy)
+
+
 # --- wrappers ------------------------------------------------------------------
 
 
@@ -142,12 +227,20 @@ def col_pass_mr(state: torch.Tensor, prop: torch.Tensor,
     n_probes, nx, ny = state.shape
     _check_cuda(prop, "prop", (nx, ny), torch.complex64, state.device)
     out = _out_for(state, out)
+    plan = col_tile_plan(nx, n_probes, ny)
+    info = (ctypes.c_int * 4)()
     lib = build().libs["fused_step_odd"]
     with torch.cuda.device(state.device):
         err = lib.fs_col_pass_mr(
             out.data_ptr(), state.data_ptr(), prop.data_ptr(),
             _twiddles(nx, state.device, full=True).data_ptr(), n_probes, nx,
-            ny, torch.cuda.current_stream().cuda_stream)
+            ny, plan.logc, plan.threads, ctypes.addressof(info),
+            torch.cuda.current_stream().cuda_stream)
+    last_launch.clear()
+    last_launch.update(cols=plan.cols, threads=plan.threads, busy=plan.busy,
+                       tiles=plan.tiles)
+    last_launch.update(zip(("grid", "blocks_per_sm", "sms", "smem_bytes"),
+                           info))
     _raise_on(err, "col_pass_mr (K5)")
     launches["k5"] += 1
     return out

@@ -156,13 +156,24 @@ def test_row_pass_mr_matches_plain(dev, n, P, mode):
 
 
 @pytest.mark.parametrize("n", MR_SIZES)
-@pytest.mark.parametrize("P", [1, 16])
+@pytest.mark.parametrize("P", [1, 3, 16, 32])
 def test_col_pass_mr_matches_plain(dev, n, P):
-    psi = _wave(dev, P, n, 393)
-    prop = _prop(dev, n, 393)
-    n0 = fs.launches["k5"]
-    _ok(fo.col_pass_mr(psi, prop), fs._plain_col_pass(psi, prop))
-    assert fs.launches["k5"] == n0 + 1
+    """K5 on P x n x 393 (odd ny: 8-byte copies) and P x n x 394 (even:
+    16-byte), in place too. P = 3 gives a tile count that is no multiple of
+    the persistent grid."""
+    for ny in (393, 394):
+        psi = _wave(dev, P, n, ny)
+        prop = _prop(dev, n, ny)
+        n0 = fs.launches["k5"]
+        got = fo.col_pass_mr(psi, prop)
+        assert fs.launches["k5"] == n0 + 1
+        _ok(got, fs._plain_col_pass(psi, prop))
+        run = fo.last_launch
+        assert run["grid"] <= min(run["tiles"],
+                                  run["blocks_per_sm"] * run["sms"])
+        buf = psi.clone()
+        assert fo.col_pass_mr(buf, prop, out=buf) is buf       # in place
+        _ok(buf, got)
 
 
 @pytest.mark.parametrize("n", MR_SIZES + [1024])

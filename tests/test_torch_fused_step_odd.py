@@ -147,3 +147,31 @@ def test_unsupported_grid_and_mode_raise():
     meta = torch.empty((1, 387, 387), dtype=torch.complex64, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         todd.col_pass_mr(meta, torch.empty((387, 387), device="meta"))
+
+
+# the CUDA tests' MR_SIZES, and 3968 = 128 * 31 (two columns at most)
+@pytest.mark.parametrize("n", [258, 384, 387, 1018, 1023, 1152, 3968])
+@pytest.mark.parametrize("n_probes", [1, 16, 32])
+def test_col_tile_plan(n, n_probes):
+    """K5's plan fits a block's shared memory and the kernel's thread cap
+    in whole warps, keeps >= 90% of the threads busy in the radix-31 stage
+    at 1023, and its tiles cover every (probe, column) exactly once (the
+    kernel's walk: tile u is columns (u % tpp) * cols .. of probe
+    u // tpp)."""
+    f = todd.stage_radices(n)
+    assert int(np.prod(f)) == n
+    for ny in (n, 393):
+        plan = todd.col_tile_plan(n, n_probes, ny)
+        assert plan.smem_bytes == 8 * (3 * n * plan.cols + n) <= 232448
+        assert plan.threads % 32 == 0
+        assert 32 <= plan.threads == todd.K5_THREADS <= 1024
+        if n == 1023:
+            assert (plan.cols, plan.threads) == (8, 288)
+            assert plan.busy >= 0.9
+        tpp = -(-ny // plan.cols)
+        assert plan.tiles == n_probes * tpp
+        seen = np.zeros((n_probes, ny), int)
+        for u in range(plan.tiles):
+            y0 = (u % tpp) * plan.cols
+            seen[u // tpp, y0:min(y0 + plan.cols, ny)] += 1
+        assert (seen == 1).all()
