@@ -12,8 +12,8 @@ Phases, each printing one line (or a few) and failing hard:
    max|d|/max|ref| <= 1e-4 and the magnitude residual
    sum((|F|-|D|)^2)/sum(|F|^2) <= 1e-6;
 4. the mixed-radix kernels the same way: K4 (every mode) and K5 at
-   16 x 1023^2 (K5 also at 32 planes, the adjoint's pair stream, with its
-   tile plan and persistent grid), K6 (the resident slice loop) at
+   16 x 1023^2, each with its tile plan and persistent grid (K5 also at
+   32 planes, the adjoint's pair stream), K6 (the resident slice loop) at
    1 x 1023^2 and 1 x 1024^2, exit wave and k space, and one
    depth-recording chain each;
 5. STEM at 1024^2: an hBN monolayer filling a 102.35 A box (3,680 atoms,
@@ -168,6 +168,19 @@ def kernel_bound(kind, P, n, nz=0):
             "bound": "hbm" if by_bytes else "fp32", "library_ms": None}
 
 
+def kernel_name(mangled):
+    """The last name component of a mangled C++ kernel name
+    (``_ZN<len><name>...<len><kernel>E...``), as -Xptxas -v prints it."""
+    s = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    name, i = mangled, 0
+    while i < len(s) and s[i].isdigit():
+        j = i
+        while s[j].isdigit():
+            j += 1
+        name, i = s[j:j + int(s[i:j])], j + int(s[i:j])
+    return name
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -306,8 +319,10 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES):
         "k5": (cuda_ms(lambda: fo.col_pass_mr(buf, prop, out=buf)),
                cuda_ms(lambda: fs._plain_col_pass(buf, prop))),
     }
-    print(f"    K5 tile plan and persistent grid at {P}x{n}^2: "
-          f"{fo.last_launch}")
+    plans = {k: dict(fo.last_launch[k]) for k in ("k4", "k5")}
+    for k, plan in plans.items():
+        print(f"    {k.upper()} tile plan and persistent grid at {P}x{n}^2: "
+              f"{plan}")
     del buf
     # K5 on 2P planes: the adjoint chain's pair stream
     buf = torch.randn((2 * P, n, n), dtype=torch.complex64, device=dev,
@@ -320,7 +335,7 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES):
                 "bound_ms": kernel_bound("pass", 2 * P, n)["bound_ms"]}
     print(f"  K5 at {2 * P}x{n}^2: {k5_pairs['ms']:.4f} ms, plain "
           f"{k5_pairs['plain_ms']:.4f} ms, bound {k5_pairs['bound_ms']:.4f} "
-          f"ms; plan and grid {fo.last_launch}")
+          f"ms; plan and grid {fo.last_launch['k5']}")
     del buf
     for key, (p1, tstack, pm) in loops.items():
         timings[key] = (
@@ -333,6 +348,8 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES):
     records = records_for({k: errs[k] for k in ("k4", "k5")}, timings,
                           bounds, f"{P}x{n}^2")
     records["k5"][f"at_{2 * P}_planes"] = k5_pairs
+    for k, plan in plans.items():
+        records[k]["plan"] = plan
     records.update(records_for(
         {"k6_mixed": errs["k6_mixed"]}, timings, bounds,
         f"1x{n}^2x{nz} slices"))
@@ -823,7 +840,9 @@ def main():
     print(f"[2] built {', '.join(p.name for p in b.paths.values())} in "
           f"{b.seconds:.1f} s")
     for line in b.log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("---"):
+        if "Compiling entry function" in line:
+            print(f"    {kernel_name(line.split(chr(39))[1])}:")
+        elif "registers" in line or "spill" in line or line.startswith("---"):
             print(f"    {line.strip()}")
 
     print(f"[3] kernels A, B, C vs plain versions at {N_PROBES} x "

@@ -19,7 +19,9 @@ Kernel map (``pyslice_tpu/ops`` Pallas kernel -> this package):
 * ``fused_step_odd._kernel_a`` / ``_kernel_b`` -> K4 / K5,
   ``fused_step_odd.row_pass_mr`` / ``col_pass_mr``, in
   ``csrc/fused_step_odd.cu`` (mixed-radix Stockham engine,
-  ``csrc/fft_mixed.cuh``).
+  ``csrc/fft_mixed.cuh``; persistent blocks with producer warps,
+  ``csrc/tile_async.cuh``). Dispatch gives them, K6 and K8 only axes whose
+  stages all run in registers (``fused_step_odd.kernel_preferred_mr``).
 * ``fused_step_resident._kernel_resident`` (#5) and
   ``fused_step_odd_resident._kernel`` (#8) -> one kernel, K6,
   ``fused_step_resident.resident_loop`` in ``csrc/resident.cu``, templated

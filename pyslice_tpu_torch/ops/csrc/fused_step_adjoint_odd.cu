@@ -13,15 +13,17 @@
 //
 // What bounds it on an H100: the pair stream in and out once, ~0.27 GB or
 // ~0.08 ms at 3.35 TB/s for 16 pairs x 1023^2 (data sheet), and the
-// mixed-radix FFT work, which for K4 at 16 x 1023^2 was 0.51 ms a launch
-// against that floor (PERF.md). K8 does K4's mid-mode work on twice the
-// rows, so it should take about twice K4's time; the vbar sum adds one
-// multiply-add a point and one store a plane.
+// mixed-radix FFT work, which for the one-block-a-tile K4 at 16 x 1023^2
+// was 0.51 ms a launch against that floor (PERF.md). K8 does that K4's
+// mid-mode work on twice the rows, so it should take about twice its
+// time; the vbar sum adds one multiply-add a point and one store a plane.
+// K4 has since become a persistent kernel with producer warps
+// (tile_async.cuh), whose row tile K8 does not share yet.
 //
 // Shared memory: two Stockham buffers of 2^(logr+1) columns plus the vbar
 // rows: 73,656 bytes at 1023 (two rows), above the 48 KB default, so the
 // launch opts in with cudaFuncSetAttribute (up to ~144 KB at 4096, one
-// row). Two blocks an SM, as K4 (__launch_bounds__(256, 2)).
+// row). Two blocks an SM (__launch_bounds__(256, 2)).
 //
 // No fast-math (sincosf for the phase mode). Plain C interface for ctypes:
 // the function launches on the given stream and returns the CUDA error as

@@ -11,121 +11,95 @@
 // layouts. None of that is needed here: the wave stays (P, nx, ny)
 // complex64 in natural order at every kernel boundary, and each transform
 // is the Stockham engine of fft_mixed.cuh in shared memory, natural order
-// in and out. K4 has kernel A's four modes on row_tile (tiles.cuh); K5 is
-// kernel B on its own tile code (col_tile_async.cuh).
+// in and out. Both kernels run on the tile code of tile_async.cuh: K4 is
+// kernel A's four modes on row tiles, K5 kernel B on column tiles.
 //
 // What bounds them on an H100: at 16 x 1023^2 a pass moves the 134 MB wave
 // in and out once and reads one 8 MB plane, 276 MB, ~0.082 ms at 3.35 TB/s
 // (data sheet). The FFT work is larger than the pow2 engine's: 1023 =
 // 3 * 11 * 31 runs three register stages, the radix-31 one ~8 complex
 // multiply-adds a point with the symmetric odd-radix form; a prime above
-// 31, such as 509 (1018 = 2 * 509), is a direct sum of ~500 terms a point.
-// K4 (PERF.md): 0.51 ms a launch at 16 x 1023^2, cuFFT's plain version
-// 0.71 ms; 14 ms at 1018^2. Its tile's load and store are loops of one
-// 8-byte access a thread, fenced by barriers (the "only" mode, staging with
-// no transform, takes 0.22 ms).
+// 31, such as 509 (1018 = 2 * 509), is a direct sum of ~500 terms a point,
+// which loses to the plain torch.fft passes at every such prime measured
+// (37 to 509), so dispatch sends those axes to the plain loop
+// (fused_step_odd.py kernel_preferred_mr; PERF.md).
 //
-// K5 is built against both. Persistent blocks, one an SM at 1023 (the
-// occupancy query), walk the (probe, column tile) pairs, tile u =
-// blockIdx.x + k gridDim.x. A block holds three tile buffers: the
-// Stockham pair of the tile it transforms and a third, and a copy of the
-// twiddle table (the tile copies would evict it from L1). Its warps are
-// split: the consumers run the stages, while three producer warps store
-// the block's previous result from the third buffer and then copy its
-// next tile into it (cp.async), so device memory is read and written
-// while the stages run rather than between them. The product with prop / n
-// is taken in the first inverse stage's loads, and the DFT constants are
-// constant-bank operands (k5_pass). The tile width and the consumer count
-// are the host's plan (ops/fused_step_odd.py col_tile_plan): at 1023,
-// 8 columns (64-byte row segments, 204,600 bytes with the table) and 288
-// consumers, 92% of them busy in the radix-31 stage. Copies and stores are
-// 16 bytes where every row segment is 16-byte aligned (even ny), 8 bytes
-// otherwise; the 16-byte path is 5-6% faster at 1152^2. Measured
-// (PERF.md, scripts/time_col_pass_mr.py, H100 at 700 W): 0.35 ms at
-// 16 x 1023^2 against 0.53 ms for the two-blocks-an-SM design it replaced,
-// 0.65 against 1.04 ms at 32 planes; bounds 0.082 and 0.162 ms.
+// Both kernels have one design. Persistent blocks, one an SM at 1023 (the
+// occupancy query), walk the (probe, tile) pairs, tile u = blockIdx.x +
+// k gridDim.x, probe-major: the blocks in flight cover about one probe,
+// and the next probe reads the t or prop plane (8 MB at 1023^2) again
+// while it can still sit in the 50 MB L2. A block holds three tile
+// buffers: the Stockham pair
+// of the tile it transforms and a third, and a copy of the twiddle table
+// (the tile copies would evict it from L1). Its warps are split: the
+// consumers run the stages, while three producer warps store the block's
+// previous result from the third buffer and then copy its next tile into
+// it (cp.async), so device memory is read and written while the stages run
+// rather than between them. The DFT constants are constant-bank operands
+// (tile_pass), and the pass's product is taken in a stage's loads. The
+// tile width and the consumer count are the host's plan
+// (ops/fused_step_odd.py tile_plan): at 1023, 8 lanes
+// (204,600 bytes with the table) and 288 consumers, 92% of them busy in
+// the radix-31 stage; the tile narrows to 4 lanes from 1163 and to 2 from
+// 2236 (4096: 229,376 bytes).
 //
-// Shared memory of K4: a tile of 2^logc rows takes two buffers of
-// 8 n 2^logc bytes (Stockham ping-pong); the width is chosen so a tile
-// stays at or under 64 KB (1023: 4 rows, 65,472 bytes), above the 48 KB
-// default, so the launches opt in with cudaFuncSetAttribute.
+// K5 (a tile is 2^logc columns): FFT_x, x prop / n in the first inverse
+// stage's loads, IFFT_x. Copies and stores are 16 bytes where every row
+// segment is 16-byte aligned (even ny), 8 bytes otherwise; the 16-byte
+// path is 5-6% faster at 1152^2. Measured (PERF.md,
+// scripts/time_col_pass_mr.py, H100 at 700 W): 0.35 ms at 16 x 1023^2
+// against 0.53 ms for the two-blocks-an-SM design it replaced, 0.65
+// against 1.04 ms at 32 planes; bounds 0.082 and 0.162 ms.
+//
+// K4 (a tile is 2^logc rows, each one transform along y): kernel A's
+// modes, x t (/ ny) in the first forward stage's loads (first, mid), or
+// in a pass of its own after the inverse stages (last) or alone (only); t
+// is the complex plane or the phase sigma*V (sincosf in the loads). A
+// row tile is one contiguous span of device memory, but its slots put a
+// row's neighbouring elements 2^logc apart, so its copies are 8 bytes
+// each, a warp's 32 filling 32 neighbouring slots. Its time is in PERF.md
+// beside the one-block-a-tile K4 it replaced (0.51 ms at 16 x 1023^2,
+// whose synchronous loads and stores, fenced by barriers, took 0.22 ms
+// with no transform at all).
 //
 // No fast-math (sincosf for the phase mode, whose arguments run to tens of
 // radians). Plain C interface for ctypes: each function launches on the
 // given stream and returns the CUDA error as an int.
 
-#include "col_tile_async.cuh"
-#include "tiles.cuh"
+#include "tile_async.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-// Two blocks an SM: the register cap (128) that allows it took K4 from 2.3
-// to 1.4 ms at 16 x 1023^2 (PERF.md).
-constexpr int kMinBlocks = 2;
-constexpr int kSmemLimit = 72 * 1024;
+// The most threads a block, the producer warps included (the plans keep to
+// it, so the register cap is 65536 / 384 = 170), the producer threads, and
+// the tile buffers.
+constexpr int kMaxThreads = 384;
+constexpr int kProducers = 96;
+constexpr int kBuffers = 3;
 
-// K5: the most threads a block, the producer warps included (the plan
-// keeps to it, so the register cap is 65536 / 384 = 170), the producer
-// threads, and the tile buffers.
-constexpr int kK5MaxThreads = 384;
-constexpr int kK5Producers = 96;
-constexpr int kK5Buffers = 3;
-
-// Tile width 2^logc for an axis of n: two buffers of 8 n 2^logc bytes
-// within 64 KB, 1 to 8 wide.
-int mixed_logc(int n) {
-  int logc = 0;
-  while (logc < 3 && 2 * 8 * n * (2 << logc) <= 65536 + 1024) ++logc;
-  return logc;
-}
-
-size_t mixed_tile_bytes(int n, int logc) {
-  return (size_t)2 * n * (1 << logc) * sizeof(float2);
-}
-
-// K4: grid (row tiles, probes).
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-row_pass_mr_kernel(float2* out, const float2* in,
-                   const float2* __restrict__ t, const float* __restrict__ sv,
-                   MixedEng ey, int nx, int logc, int mode) {
-  extern __shared__ float2 smem[];
-  float2* a = smem;
-  float2* b = smem + ((size_t)ey.n << logc);
-  row_tile(ey, a, b, out, in, t, sv, blockIdx.y, blockIdx.x << logc, nx,
-           logc, mode, threadIdx.x, blockDim.x);
-}
-
-// K5: persistent blocks over the n_tiles (probe, column tile) pairs, tpp
-// tiles a probe; tile u is columns (u % tpp) << logc .. of probe u / tpp.
-// The block's last kK5Producers threads are the producers: while the other
-// warps, the consumers, transform tile u in `cur` and `spare`, they store
-// the block's previous tile from `next` and then copy tile u + gridDim.x
+// The persistent walk of K4 and K5 over n_tiles (probe, tile) pairs: tile
+// u = blockIdx.x + k gridDim.x, the grid at most n_tiles. smem holds three
+// tile buffers of `slots` slots. The block's last kProducers threads are
+// the producers: while the other warps, the consumers, transform tile u in
+// `cur` and `spare` (compute(cur, spare, u, tid, nt)), they store the
+// block's previous result from `next` and then copy tile u + gridDim.x
 // into it (cp.async, and wait for the copies); a block-wide barrier a tile
-// hands the buffers over. The transform ends in `cur`, which becomes the
-// next tile's `next`. The grid is at most n_tiles.
-__global__ void __launch_bounds__(kK5MaxThreads, 1)
-col_pass_mr_kernel(float2* out, const float2* in,
-                   const float2* __restrict__ prop, MixedEng ex, int ny,
-                   int logc, int tpp, int n_tiles, int vec16) {
-  extern __shared__ __align__(16) float2 smem16[];
+// hands the buffers over. The transform ends in `cur`, or in `spare` after
+// an odd count of stages (`odd`), and that buffer becomes the next tile's
+// `next`. tile(s, v) is tile v's copy (TileCopy, RowTileCopy) in buffer s.
+template <class Tile, class Compute>
+__device__ void persistent_tiles(float2* smem, size_t slots, int n_tiles,
+                                 bool odd, float2* out, Tile tile,
+                                 Compute compute) {
   const int tid = threadIdx.x;
-  const int nc = blockDim.x - kK5Producers;    // consumer threads
+  const int nc = blockDim.x - kProducers;    // consumer threads
   const bool producer = tid >= nc;
-  const int n = ex.n;
-  const size_t slots = (size_t)n << logc;
-  float2* cur = smem16;               // this tile
-  float2* spare = smem16 + slots;     // the Stockham pair's second buffer
-  float2* next = smem16 + 2 * slots;  // the last result, then the next tile
-  float2* tws = smem16 + 3 * slots;   // the twiddle table
-  for (int i = tid; i < n; i += blockDim.x) tws[i] = ex.tw[i];
-  auto tile = [&](float2* s, int v) {
-    return TileCopy{s, in, n, ny, v / tpp, (v % tpp) << logc, logc,
-                    vec16 != 0};
-  };
+  float2* cur = smem;                 // this tile
+  float2* spare = smem + slots;       // the Stockham pair's second buffer
+  float2* next = smem + 2 * slots;    // the last result, then the next tile
   int u = blockIdx.x;
   if (producer) {
-    tile(cur, u).issue(tid - nc, kK5Producers);
+    tile(cur, u).issue(tid - nc, kProducers);
     cp_async_commit();
     cp_async_wait_all();
   }
@@ -133,66 +107,98 @@ col_pass_mr_kernel(float2* out, const float2* in,
   for (; u < n_tiles; u += gridDim.x) {
     const int un = u + gridDim.x;
     if (!producer) {
-      const int y0 = (u % tpp) << logc;
-      col_tile_compute(ex, cur, spare, tws,
-                       TileProp{prop + y0, ny, y0, 1.0f / (float)n}, logc,
-                       tid, nc);
+      compute(cur, spare, u, tid, nc);
     } else {
       if (u != (int)blockIdx.x) {
-        tile(next, u - gridDim.x).store(out, tid - nc, kK5Producers);
-        bar_sync_last(kK5Producers);
+        tile(next, u - gridDim.x).store(out, tid - nc, kProducers);
+        bar_sync_last(kProducers);
       }
       if (un < n_tiles) {
-        tile(next, un).issue(tid - nc, kK5Producers);
+        tile(next, un).issue(tid - nc, kProducers);
         cp_async_commit();
         cp_async_wait_all();
       }
     }
-    __syncthreads();          // `next` has landed and `cur` holds tile u
-    float2* t = cur;
+    __syncthreads();          // `next` has landed; tile u's result is done
+    float2* res = odd ? spare : cur;
+    float2* other = odd ? cur : spare;
     cur = next;
-    next = t;
+    spare = other;
+    next = res;
   }
-  if (producer) tile(next, u - gridDim.x).store(out, tid - nc, kK5Producers);
+  if (producer) tile(next, u - gridDim.x).store(out, tid - nc, kProducers);
 }
 
-}  // namespace
-
-extern "C" {
-
-int fs_row_pass_mr(void* out, const void* in, const void* t, const void* sv,
-                   const void* tw, int n_probes, int nx, int ny, int mode,
-                   void* stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      row_pass_mr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemLimit);
-  if (err != cudaSuccess) return (int)err;
-  const int logc = mixed_logc(ny);
-  const dim3 grid((nx + (1 << logc) - 1) >> logc, n_probes);
-  row_pass_mr_kernel<<<grid, kThreads, mixed_tile_bytes(ny, logc),
-                       (cudaStream_t)stream>>>(
-      (float2*)out, (const float2*)in, (const float2*)t, (const float*)sv,
-      mixed_eng(tw, ny), nx, logc, mode);
-  return (int)cudaGetLastError();
+// K5: tile u is columns (u % tpp) << logc .. of probe u / tpp, tpp tiles
+// a probe; FFT_x, x prop / n, IFFT_x (col_tile_compute, 2 nf stages).
+__global__ void __launch_bounds__(kMaxThreads, 1)
+col_pass_mr_kernel(float2* out, const float2* in,
+                   const float2* __restrict__ prop, MixedEng ex, int ny,
+                   int logc, int tpp, int n_tiles, int vec16) {
+  extern __shared__ __align__(16) float2 smem16[];
+  const int n = ex.n;
+  const size_t slots = (size_t)n << logc;
+  float2* tws = smem16 + 3 * slots;   // the twiddle table
+  for (int i = threadIdx.x; i < n; i += blockDim.x) tws[i] = ex.tw[i];
+  persistent_tiles(
+      smem16, slots, n_tiles, false, out,
+      [&](float2* s, int v) {
+        return TileCopy{s, in, n, ny, v / tpp, (v % tpp) << logc, logc,
+                        vec16 != 0};
+      },
+      [&](float2* cur, float2* spare, int u, int tid, int nt) {
+        const int y0 = (u % tpp) << logc;
+        col_tile_compute(ex, cur, spare, tws,
+                         TileProp{prop + y0, ny, y0, 1.0f / (float)n}, logc,
+                         tid, nt);
+      });
 }
 
-// K5. logc and threads (the consumers; the block adds the producers):
-// the tile plan (ops/fused_step_odd.py col_tile_plan). info receives the
-// grid, blocks per SM, SMs and the dynamic shared memory in bytes.
-int fs_col_pass_mr(void* out, const void* in, const void* prop,
-                   const void* tw, int n_probes, int nx, int ny, int logc,
-                   int threads, int* info, void* stream) {
-  const MixedEng ex = mixed_eng(tw, nx);
-  const int block = threads + kK5Producers;
-  if (logc < 0 || logc > 3 || threads < 32 || block > kK5MaxThreads ||
-      threads % 32 != 0 || ex.plan.nf < 2 || ex.plan.f[0] > 31) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem =
-      (kK5Buffers * ((size_t)nx << logc) + nx) * sizeof(float2);
+// K4: tile u is rows (u % tpp) << logc .. of probe u / tpp (rows of ny =
+// ey.n), tpp tiles a probe; kernel A's `mode` (row_tile_compute). t is the
+// (nx, ny) complex plane or, with kPhase, sv the phase.
+template <bool kPhase>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+row_pass_mr_kernel(float2* out, const float2* in,
+                   const float2* __restrict__ t, const float* __restrict__ sv,
+                   MixedEng ey, int nx, int logc, int tpp, int n_tiles,
+                   int mode) {
+  extern __shared__ __align__(16) float2 smem16[];
+  const int n = ey.n;
+  const size_t slots = (size_t)n << logc;
+  float2* tws = smem16 + 3 * slots;   // the twiddle table
+  for (int i = threadIdx.x; i < n; i += blockDim.x) tws[i] = ey.tw[i];
+  // stages: nf for first and last, 2 nf for mid, none for only
+  const bool odd = (mode == kFirst || mode == kLast) && (ey.plan.nf & 1);
+  const float scale = (mode == kMid || mode == kLast) ? 1.0f / (float)n
+                                                      : 1.0f;
+  persistent_tiles(
+      smem16, slots, n_tiles, odd, out,
+      [&](float2* s, int v) {
+        return RowTileCopy{s, in, n, nx, v / tpp, (v % tpp) << logc, logc};
+      },
+      [&](float2* cur, float2* spare, int u, int tid, int nt) {
+        const size_t x0 = (size_t)((u % tpp) << logc);
+        const RowT<kPhase> m{kPhase ? nullptr : t + x0 * n,
+                             kPhase ? sv + x0 * n : nullptr, n,
+                             nx - (int)x0, scale};
+        row_tile_compute(ey, cur, spare, tws, m, mode, logc, tid, nt);
+      });
+}
+
+// Host: the shared memory of a tile of 2^logc lanes of n and the table.
+size_t tile_smem(int n, int logc) {
+  return (kBuffers * ((size_t)n << logc) + n) * sizeof(float2);
+}
+
+// Host: opt `kernel` in to smem bytes of shared memory and size its
+// persistent grid, the blocks the occupancy query fits on the card, at
+// most `tiles`. info receives the grid, blocks per SM, SMs and smem.
+template <class K>
+cudaError_t persistent_grid(K kernel, int block, size_t smem, long tiles,
+                            int* info) {
   cudaError_t err = cudaFuncSetAttribute(
-      col_pass_mr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int dev = 0;
   int sms = 0;
   int per_sm = 0;
@@ -201,22 +207,77 @@ int fs_col_pass_mr(void* out, const void* in, const void* prop,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, col_pass_mr_kernel, block, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                         block, smem);
   }
-  if (err != cudaSuccess) return (int)err;
-  const int tpp = (ny + (1 << logc) - 1) >> logc;
-  const long tiles = (long)n_probes * tpp;
+  if (err != cudaSuccess) return err;
   long grid = (long)per_sm * sms;
   if (grid > tiles) grid = tiles;
   info[0] = (int)grid;
   info[1] = per_sm;
   info[2] = sms;
   info[3] = (int)smem;
-  if (grid < 1) return (int)cudaErrorInvalidConfiguration;
+  return grid < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+// Host: whether a tile plan (logc, consumer threads) is one the kernels
+// take on an axis of this plan: 1 to 8 lanes, whole consumer warps within
+// kMaxThreads with the producers, and a first stage in registers (the one
+// that takes the pass's product).
+bool plan_ok(const MixedPlan& pl, int logc, int threads) {
+  return logc >= 0 && logc <= 3 && threads >= 32 && threads % 32 == 0 &&
+         threads + kProducers <= kMaxThreads && pl.nf >= 1 && pl.f[0] <= 31;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K4. t the complex plane, or sv the phase (t null). logc and threads
+// (the consumers; the block adds the producers): the tile plan
+// (ops/fused_step_odd.py tile_plan). info receives the grid, blocks
+// per SM, SMs and the dynamic shared memory in bytes.
+int fs_row_pass_mr(void* out, const void* in, const void* t, const void* sv,
+                   const void* tw, int n_probes, int nx, int ny, int mode,
+                   int logc, int threads, int* info, void* stream) {
+  const MixedEng ey = mixed_eng(tw, ny);
+  if (!plan_ok(ey.plan, logc, threads) || mode < kFirst || mode > kOnly) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = tile_smem(ny, logc);
+  const int block = threads + kProducers;
+  const int tpp = (nx + (1 << logc) - 1) >> logc;
+  const long tiles = (long)n_probes * tpp;
+  const auto kernel = sv != nullptr ? row_pass_mr_kernel<true>
+                                    : row_pass_mr_kernel<false>;
+  const cudaError_t err = persistent_grid(kernel, block, smem, tiles, info);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)info[0], block, smem, (cudaStream_t)stream>>>(
+      (float2*)out, (const float2*)in, (const float2*)t, (const float*)sv,
+      ey, nx, logc, tpp, (int)tiles, mode);
+  return (int)cudaGetLastError();
+}
+
+// K5. logc and threads (the consumers; the block adds the producers):
+// the tile plan (ops/fused_step_odd.py tile_plan). info receives the
+// grid, blocks per SM, SMs and the dynamic shared memory in bytes.
+int fs_col_pass_mr(void* out, const void* in, const void* prop,
+                   const void* tw, int n_probes, int nx, int ny, int logc,
+                   int threads, int* info, void* stream) {
+  const MixedEng ex = mixed_eng(tw, nx);
+  if (!plan_ok(ex.plan, logc, threads) || ex.plan.nf < 2) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = tile_smem(nx, logc);
+  const int block = threads + kProducers;
+  const int tpp = (ny + (1 << logc) - 1) >> logc;
+  const long tiles = (long)n_probes * tpp;
+  const cudaError_t err =
+      persistent_grid(col_pass_mr_kernel, block, smem, tiles, info);
+  if (err != cudaSuccess) return (int)err;
   const int vec16 = logc >= 1 && ny % 2 == 0 &&
                     (uintptr_t)in % 16 == 0 && (uintptr_t)out % 16 == 0;
-  col_pass_mr_kernel<<<(unsigned)grid, block, smem,
+  col_pass_mr_kernel<<<(unsigned)info[0], block, smem,
                        (cudaStream_t)stream>>>(
       (float2*)out, (const float2*)in, (const float2*)prop, ex, ny, logc,
       tpp, (int)tiles, vec16);

@@ -1,7 +1,9 @@
 // The per-tile work of the slice step, written once for both FFT engines
-// (Pow2Eng of fft_pow2.cuh, MixedEng of fft_mixed.cuh) and used by K4
-// (fused_step_odd.cu) and by the resident slice loop K6 (resident.cu); K5
-// has its own column tile (col_tile_async.cuh).
+// (Pow2Eng of fft_pow2.cuh, MixedEng of fft_mixed.cuh): row_tile, col_tile
+// and kconv_tile for the resident slice loop K6 (resident.cu),
+// pair_row_tile for the adjoint's backward row passes K7 and K8
+// (fused_step_adjoint*.cu). The persistent mixed-radix passes K4 and K5
+// (fused_step_odd.cu) have their own tiles (tile_async.cuh).
 //
 // An engine E gives: E::n, the axis length; row(i), the slot row of
 // element i in a tile (s[(row(i) << logc) + c]); kslot(k), the element

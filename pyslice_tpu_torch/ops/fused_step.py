@@ -155,7 +155,7 @@ _ARGTYPES = {
     "fs_row_pass": "pppppiiiip",
     "fs_col_pass": "ppppiiip",
     "fs_kconvert": "pppiiip",
-    "fs_row_pass_mr": "pppppiiiip",
+    "fs_row_pass_mr": "pppppiiiiiipp",
     "fs_col_pass_mr": "ppppiiiiipp",
     "fs_resident_loop": "ppppppppiiiiiiipp",
     "fs_row_pass_bwd": "ppppppiiiifp",

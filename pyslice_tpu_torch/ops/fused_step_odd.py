@@ -12,27 +12,30 @@ grids (odd composite, e.g. 1023 = 3 * 11 * 31) and the n1*128 sizes
 The kernels (``csrc/fused_step_odd.cu``) run a mixed-radix Stockham FFT in
 shared memory (``csrc/fft_mixed.cuh``): natural order in and out, so the
 wave, the transmission planes and the Fresnel plane all stay in natural
-order and nothing is permuted. K5 runs as persistent blocks whose
-producer warps store the previous column tile and copy the next one into
-shared memory (``cp.async``) while the consumer warps transform the
-current one (``csrc/col_tile_async.cuh``); its tile width and consumer
-count are the host's plan, ``col_tile_plan``. The JAX kernels'
-digit-split layouts and scrambled frequency order were limits of Pallas
-on the TPU and are not ported. There is no fused k-space conversion on this chain (the JAX
-package has none either): ``engine.pipeline`` converts its exit wave with
-``torch.fft``.
+order and nothing is permuted. Both run as persistent blocks whose
+producer warps store the previous tile and copy the next one into shared
+memory (``cp.async``) while the consumer warps transform the current one
+(``csrc/tile_async.cuh``): K4 on tiles of rows, K5 on tiles of columns.
+Their tile widths and consumer counts are the host's plan, ``tile_plan``.
+The JAX kernels' digit-split layouts and scrambled frequency order were
+limits of Pallas on the TPU and are not ported. There is no fused k-space
+conversion on this chain (the JAX package has none either):
+``engine.pipeline`` converts its exit wave with ``torch.fft``.
 
 Each wrapper takes its plain ``torch.fft`` version (kernel A's and B's) for
 a tensor on the CPU, and for a CUDA tensor launches its kernel or raises.
 ``launches["k4"]`` / ``launches["k5"]`` count the kernel launches;
-``last_launch`` holds K5's last plan and persistent grid.
+``last_launch["k4"]`` / ``last_launch["k5"]`` hold each one's last plan and
+persistent grid.
 
 Sizes (``supported_size_mr``): every axis the JAX package gives a kernel,
 up to 4096 (the engine's shared-memory limit): the JAX odd kernels' rule
 (``supported_size_odd``, with the divisor rule of its
 ``matfft.scrambled_factors``), and the JAX aligned kernels' n1*128 rule.
 Primes such as 1009, which the JAX package sends to XLA, are left to the
-plain path.
+plain path. Of these sizes, dispatch gives the kernels only those whose
+stages all run in registers (``kernel_preferred_mr``): a larger prime runs
+as a direct sum, which loses to the plain passes.
 """
 
 from __future__ import annotations
@@ -107,19 +110,29 @@ def supported_size_mr(n: int, n_probes: int = None) -> bool:
 MR_SIZES = "the JAX kernels' sizes up to 4096"
 
 
-# --- K5's tile plan ------------------------------------------------------------
+# --- the tile plans of K4 and K5, and the routing rule ---------------------------
 
-# K5's limits (csrc/fused_step_odd.cu): consumer threads a block (its
-# __launch_bounds__ of 384, less three producer warps), tile buffers, and
-# the shared memory a block may opt in to on an H100 (227 KB).
-K5_THREADS = 288
-K5_BUFFERS = 3
+# The limits of K4 and K5 (csrc/fused_step_odd.cu): consumer threads a
+# block (their __launch_bounds__ of 384, less three producer warps), tile
+# buffers, the widest tile (2^3 lanes), and the shared memory a block may
+# opt in to on an H100 (227 KB).
+TILE_THREADS = 288
+TILE_BUFFERS = 3
+TILE_MAX_LOGC = 3
 SMEM_MAX = 232448
-K5_MAX_LOGC = 3
 
-# K5's last launch: the plan (cols, threads, busy) and the grid the
-# occupancy query gave (grid, blocks_per_sm, sms, smem_bytes).
-last_launch = {}
+# The largest stage radix of an axis that dispatch gives the mixed-radix
+# kernels: every stage in registers. Every larger prime runs as a direct
+# sum, and at each one measured the kernels lost to their plain versions
+# (scripts/time_col_pass_mr.py --plain, H100 at 700 W, PERF.md: at
+# 16 x 999^2, prime 37, K4 1.47 ms against 0.51 plain and K5 1.84 against
+# 0.88; at 16 x 1018^2, prime 509, 14.3 against 0.80 and 19.6 against 1.18).
+KERNEL_MAX_RADIX = 31
+
+# The last launch of each kernel: the plan (lanes, threads, busy, tiles)
+# and the grid the occupancy query gave (grid, blocks_per_sm, sms,
+# smem_bytes).
+last_launch = {"k4": {}, "k5": {}}
 
 
 def stage_radices(n: int) -> list:
@@ -147,41 +160,60 @@ def stage_radices(n: int) -> list:
     return f
 
 
+def kernel_preferred_mr(n: int) -> bool:
+    """Whether dispatch gives an axis of n (one ``supported_size_mr``
+    admits) to the mixed-radix kernels K4, K5, K6 and K8: its largest stage
+    radix is at most KERNEL_MAX_RADIX, so no stage is a direct sum. The
+    threshold is the measurement of ``scripts/time_col_pass_mr.py
+    --plain`` (each kernel against its plain version at primes 37 to 509;
+    PERF.md)."""
+    return max(stage_radices(n)) <= KERNEL_MAX_RADIX
+
+
 @dataclasses.dataclass(frozen=True)
-class ColTilePlan:
-    logc: int           # the tile is 2^logc columns
+class TilePlan:
+    logc: int           # the tile is 2^logc lanes: columns (K5), rows (K4)
     threads: int        # a block's consumer threads (and three producer warps)
-    smem_bytes: int     # K5_BUFFERS tile buffers and the twiddle table
-    tiles: int          # (probe, column tile) pairs
+    smem_bytes: int     # TILE_BUFFERS tile buffers and the twiddle table
+    tiles: int          # (probe, tile) pairs
     busy: float         # share of the threads busy in the fewest-item stage
 
     @property
-    def cols(self) -> int:
+    def lanes(self) -> int:
         return 1 << self.logc
 
 
-def _k5_smem(n: int, logc: int) -> int:
-    """K5's shared memory: the tile buffers and the twiddle table."""
-    return 8 * (K5_BUFFERS * (n << logc) + n)
+def _tile_smem(n: int, logc: int) -> int:
+    """The shared memory of K4 and K5: the tile buffers and the twiddle
+    table."""
+    return 8 * (TILE_BUFFERS * (n << logc) + n)
 
 
-def col_tile_plan(n: int, n_probes: int, ny: int = None) -> ColTilePlan:
-    """K5's tile on an axis of n (nx) for n_probes x ny columns (ny = n by
-    default): the widest tile, up to 8 columns, whose K5_BUFFERS buffers
-    fit SMEM_MAX beside the n-entry twiddle table, and K5_THREADS consumer
-    threads. ``busy`` is their share that works in the stage with the
-    fewest items (a radix-R stage in registers has n/R items a column, a
-    larger prime n). At 1023 = 3 * 11 * 31: 8 columns, 264 radix-31 items
-    on 288 threads, 92% busy."""
-    ny = n if ny is None else ny
-    logc = K5_MAX_LOGC
-    while logc > 0 and _k5_smem(n, logc) > SMEM_MAX:
+def tile_plan(n: int, n_probes: int, lanes: int) -> TilePlan:
+    """The tile of K4 or K5 on transforms of length n (K4: ny, K5: nx) for
+    n_probes x ``lanes`` of them (K4: nx rows, K5: ny columns): the widest,
+    up to 2^TILE_MAX_LOGC lanes, whose TILE_BUFFERS buffers fit SMEM_MAX
+    beside the n-entry twiddle table, and TILE_THREADS consumer threads.
+    ``busy`` is their share that works in the stage with the fewest items
+    (a radix-R stage in registers has n/R items a lane, a larger prime n).
+    At 1023 = 3 * 11 * 31: 8 lanes, 264 radix-31 items on 288 threads, 92%
+    busy."""
+    logc = TILE_MAX_LOGC
+    while logc > 0 and _tile_smem(n, logc) > SMEM_MAX:
         logc -= 1
     items = min((n // r if r <= 31 else n) << logc for r in stage_radices(n))
-    busy = items / (K5_THREADS * -(-items // K5_THREADS))
-    return ColTilePlan(logc=logc, threads=K5_THREADS,
-                       smem_bytes=_k5_smem(n, logc),
-                       tiles=n_probes * -(-ny // (1 << logc)), busy=busy)
+    busy = items / (TILE_THREADS * -(-items // TILE_THREADS))
+    return TilePlan(logc=logc, threads=TILE_THREADS,
+                    smem_bytes=_tile_smem(n, logc),
+                    tiles=n_probes * -(-lanes // (1 << logc)), busy=busy)
+
+
+def _record(kernel: str, plan: TilePlan, info) -> None:
+    rec = last_launch[kernel]
+    rec.clear()
+    rec.update(lanes=plan.lanes, threads=plan.threads, busy=plan.busy,
+               tiles=plan.tiles)
+    rec.update(zip(("grid", "blocks_per_sm", "sms", "smem_bytes"), info))
 
 
 # --- wrappers ------------------------------------------------------------------
@@ -203,13 +235,17 @@ def row_pass_mr(mode: str, state: torch.Tensor, t: torch.Tensor,
     _check_cuda(t, "t", (nx, ny), torch.float32 if phase else torch.complex64,
                 state.device)
     out = _out_for(state, out)
+    plan = tile_plan(ny, n_probes, nx)
+    info = (ctypes.c_int * 4)()
     lib = build().libs["fused_step_odd"]
     with torch.cuda.device(state.device):
         err = lib.fs_row_pass_mr(
             out.data_ptr(), state.data_ptr(),
             None if phase else t.data_ptr(), t.data_ptr() if phase else None,
             _twiddles(ny, state.device, full=True).data_ptr(), n_probes, nx,
-            ny, ROW_MODES[mode], torch.cuda.current_stream().cuda_stream)
+            ny, ROW_MODES[mode], plan.logc, plan.threads,
+            ctypes.addressof(info), torch.cuda.current_stream().cuda_stream)
+    _record("k4", plan, info)
     _raise_on(err, "row_pass_mr (K4)")
     launches["k4"] += 1
     return out
@@ -227,7 +263,7 @@ def col_pass_mr(state: torch.Tensor, prop: torch.Tensor,
     n_probes, nx, ny = state.shape
     _check_cuda(prop, "prop", (nx, ny), torch.complex64, state.device)
     out = _out_for(state, out)
-    plan = col_tile_plan(nx, n_probes, ny)
+    plan = tile_plan(nx, n_probes, ny)
     info = (ctypes.c_int * 4)()
     lib = build().libs["fused_step_odd"]
     with torch.cuda.device(state.device):
@@ -236,11 +272,7 @@ def col_pass_mr(state: torch.Tensor, prop: torch.Tensor,
             _twiddles(nx, state.device, full=True).data_ptr(), n_probes, nx,
             ny, plan.logc, plan.threads, ctypes.addressof(info),
             torch.cuda.current_stream().cuda_stream)
-    last_launch.clear()
-    last_launch.update(cols=plan.cols, threads=plan.threads, busy=plan.busy,
-                       tiles=plan.tiles)
-    last_launch.update(zip(("grid", "blocks_per_sm", "sms", "smem_bytes"),
-                           info))
+    _record("k5", plan, info)
     _raise_on(err, "col_pass_mr (K5)")
     launches["k5"] += 1
     return out

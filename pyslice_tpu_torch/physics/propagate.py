@@ -45,17 +45,20 @@ def fused_family(n_probes: int, nx: int, ny: int, nz: int,
 
     Differences from the JAX package: the n1*128 sizes that are not powers
     of two go to the mixed-radix families (JAX: aligned); axes above 4096
-    go to the plain loop; the JAX VMEM gates (resident grids up to 2^20
-    pixels and 2048 a side; the odd resident kernel's estimate, which at
-    1023^2 admits one probe only) are not applied."""
+    go to the plain loop, and so do axes with a stage prime above 31
+    (``fused_step_odd.kernel_preferred_mr``: the kernels run such a stage
+    as a direct sum, which loses to the plain passes; JAX ran it as an MXU
+    matrix product); the JAX VMEM gates (resident grids up to 2^20 pixels
+    and 2048 a side; the odd resident kernel's estimate, which at 1023^2
+    admits one probe only) are not applied."""
     if precision != "single":
         return None
     preferred = (resident and nz >= 2
                  and fused_step_resident.resident_preferred(n_probes, nx, ny))
     if fused_step.supported_size(nx) and fused_step.supported_size(ny):
         return "resident" if preferred else "aligned"
-    if (fused_step_odd.supported_size_mr(nx, n_probes)
-            and fused_step_odd.supported_size_mr(ny, n_probes)):
+    if all(fused_step_odd.supported_size_mr(n, n_probes)
+           and fused_step_odd.kernel_preferred_mr(n) for n in (nx, ny)):
         return "odd_resident" if preferred else "odd"
     return None
 

@@ -1,21 +1,31 @@
 #!/usr/bin/env python3
-"""Time kernel K5 of a checkout's pyslice_tpu_torch on one CUDA card: the
-mixed-radix column pass ``col_pass_mr`` (ops/fused_step_odd.py), in place,
-after holding it to its plain torch.fft version.
+"""Time the mixed-radix kernels of a checkout's pyslice_tpu_torch on one CUDA
+card, each after holding it to its plain torch.fft version: K4 (the row
+pass ``row_pass_mr``), K5 (the column pass ``col_pass_mr``), K6 (the
+resident slice loop ``resident_loop``) and K8 (the adjoint's backward row
+pass ``row_pass_mr_bwd``).
 
-    python3 scripts/time_col_pass_mr.py [--root DIR] [--shapes 16x1023 32x1023]
-        [--shift] [--reps 20] [--rounds 5]
+    python3 scripts/time_col_pass_mr.py [--root DIR] [--kernels k4 k5 k6 k8]
+        [--mode mid] [--shapes 16x1023 32x1023] [--plain] [--shift]
+        [--nz 14] [--reps 20] [--rounds 5]
 
 --root is the checkout whose package is imported and built (by default the
-one around this script). The kernel runs through that checkout's own
-wrapper, so two versions of K5 compare whatever their C interface. To
-compare with another commit, unpack it into a git-ignored directory
+one around this script). Each kernel runs through that checkout's own
+wrapper, so two versions compare whatever their C interface. To compare
+with another commit, unpack it into a git-ignored directory
 (``git archive <commit> | tar -x -C build/parent``) and run the script on
-each root in turn: parent, this, this, parent. --shift places the wave one
-complex64 element (8 bytes) past a 16-byte boundary. A shape PxN is P
-planes of N^2; it is timed over --rounds rounds of --reps launches (CUDA
-events), and the median round is reported. Prints a line per shape and,
-last, one JSON object.
+each root in turn: parent, this, this, parent.
+
+A shape PxN is P planes of N^2 for K4 and K5 (in place in ``mid`` mode;
+K4's other modes write a second buffer), P probes of N^2 through --nz
+slices for K6, and P pairs (2P planes) of N^2 for K8 in ``mid`` mode.
+--mode is K4's mode. --plain times the plain version too, in the same
+rounds (the order reversed every other round), for the routing rule of
+``fused_step_odd.kernel_preferred_mr``. --shift places the wave one
+complex64 element (8 bytes) past a 16-byte boundary (K5's 8-byte copy
+path on an even N). Each timing is --rounds rounds of --reps launches
+(CUDA events), and the median round is reported. Prints a line per
+(kernel, shape) and, last, one JSON object.
 """
 
 import argparse
@@ -28,12 +38,93 @@ from pathlib import Path
 MAX_REL, MAX_RESIDUAL = 1e-4, 1e-6     # the bars of chip_smoke.py
 
 
+def errors(got, want):
+    """(max|d|/max|ref|, magnitude residual)."""
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    f, r = got.abs().double(), want.abs().double()
+    return rel, (((f - r) ** 2).sum() / (r ** 2).sum()).item()
+
+
+def case(kernel, mode, P, n, nz, shift, dev, g):
+    """(run the kernel, run the plain version, [(got, want, vbar?)...]) of
+    one kernel at one shape: the checks compare a kernel call that writes
+    a new buffer with its plain version on the same inputs."""
+    import torch
+    from pyslice_tpu_torch.core.constants import interaction_parameter
+    from pyslice_tpu_torch.ops import fused_step as fs
+    from pyslice_tpu_torch.ops import fused_step_odd as fo
+
+    planes = 2 * P if kernel == "k8" else P
+    store = torch.empty(planes * n * n + 1, dtype=torch.complex64, device=dev)
+    psi = (store[1:] if shift else store[:-1]).view(planes, n, n)
+    psi.copy_(torch.randn((planes, n, n), dtype=torch.complex64, device=dev,
+                          generator=g))
+    phase = torch.rand((n, n), device=dev, generator=g) * (2 * math.pi)
+    plane = torch.polar(torch.ones_like(phase), phase)
+    if kernel == "k4":
+        out = psi if mode == "mid" else torch.empty_like(psi)
+        return (lambda: fo.row_pass_mr(mode, psi, plane, out=out),
+                lambda: fs._plain_row_pass(mode, psi, plane),
+                [(fo.row_pass_mr(mode, psi, plane),
+                  fs._plain_row_pass(mode, psi, plane), False)])
+    if kernel == "k5":
+        return (lambda: fo.col_pass_mr(psi, plane, out=psi),
+                lambda: fs._plain_col_pass(psi, plane),
+                [(fo.col_pass_mr(psi, plane),
+                  fs._plain_col_pass(psi, plane), False)])
+    if kernel == "k6":
+        from pyslice_tpu_torch.ops import fused_step_resident as fr
+        v = torch.randn((nz, n, n), device=dev, generator=g) * 20.0
+        t = torch.polar(torch.ones_like(v), v)
+        return (lambda: fr.resident_loop(psi, t, plane),
+                lambda: fr._plain_resident_loop(psi, t, plane),
+                [(fr.resident_loop(psi, t, plane),
+                  fr._plain_resident_loop(psi, t, plane), False)])
+    from pyslice_tpu_torch.ops import fused_step_adjoint as fa
+    sigma = interaction_parameter(100e3)
+    vb = torch.empty((n, n), device=dev)
+    got = fa.row_pass_mr_bwd("mid", psi, plane, sigma)
+    want = fa._plain_row_pass_bwd("mid", psi, plane, sigma)
+    return (lambda: fa.row_pass_mr_bwd("mid", psi, plane, sigma, out=psi,
+                                       vbar=vb),
+            lambda: fa._plain_row_pass_bwd("mid", psi, plane, sigma),
+            [(got[0], want[0], False), (got[1], want[1], True)])
+
+
+def timed(fns, reps, rounds):
+    """Median ms a call of each function, over rounds of reps calls, the
+    functions in turns (order reversed every other round)."""
+    import torch
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = [[] for _ in fns]
+    for r in range(rounds):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            start.record()
+            for _ in range(reps):
+                fns[i]()
+            end.record()
+            end.synchronize()
+            times[i].append(start.elapsed_time(end) / reps)
+    return [(sorted(ts)[len(ts) // 2], ts) for ts in times]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parent.parent)
+    ap.add_argument("--kernels", nargs="+", default=["k5"],
+                    choices=["k4", "k5", "k6", "k8"])
+    ap.add_argument("--mode", default="mid",
+                    choices=["first", "mid", "last", "only"])
     ap.add_argument("--shapes", nargs="+", default=["16x1023", "32x1023"])
+    ap.add_argument("--plain", action="store_true")
     ap.add_argument("--shift", action="store_true")
+    ap.add_argument("--nz", type=int, default=14)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=5)
     args = ap.parse_args()
@@ -53,55 +144,47 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    result = {"root": str(root), "card": card, "shift": args.shift, "k5": {}}
-    for spec in args.shapes:
-        P, n = (int(x) for x in spec.split("x"))
-        store = torch.empty(P * n * n + 1, dtype=torch.complex64, device=dev)
-        psi = (store[1:] if args.shift else store[:-1]).view(P, n, n)
-        psi.copy_(torch.randn((P, n, n), dtype=torch.complex64, device=dev,
-                              generator=g))
-        phase = torch.rand((n, n), device=dev, generator=g) * (2 * math.pi)
-        prop = torch.polar(torch.ones_like(phase), phase)
-        want = fs._plain_col_pass(psi, prop)
-        fo.col_pass_mr(psi, prop, out=psi)
-        rel = ((psi - want).abs().max() / want.abs().max()).item()
-        res = (((psi.abs() - want.abs()) ** 2).sum()
-               / (want.abs() ** 2).sum()).item()
-        del want
-        if not (rel <= MAX_REL and res <= MAX_RESIDUAL):
-            print(f"K5 at {spec}: max|d|/max|ref| {rel:.3e}, residual "
-                  f"{res:.3e}, over the bars", file=sys.stderr)
-            return 1
-
-        def run():
-            fo.col_pass_mr(psi, prop, out=psi)
-
-        run()
-        n0 = fs.launches["k5"]
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        times = []
-        for _ in range(args.rounds):
-            start.record()
-            for _ in range(args.reps):
-                run()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / args.reps)
-        if fs.launches["k5"] - n0 != args.rounds * args.reps:
-            print(f"K5 at {spec}: the kernel was not launched",
-                  file=sys.stderr)
-            return 1
-        ms = sorted(times)[len(times) // 2]
-        plan = dict(getattr(fo, "last_launch", {}))
-        print(f"K5 at {P}x{n}^2{' shifted' if args.shift else ''}: "
-              f"{ms:.4f} ms (median of {args.rounds} rounds of {args.reps}, "
-              f"{min(times):.4f}..{max(times):.4f}); max|d|/max|ref| "
-              f"{rel:.2e}, residual {res:.2e}; plan {plan}; root {root}; "
-              f"card {card}")
-        result["k5"][spec] = {"ms": ms, "rounds_ms": times,
-                              "max_rel": rel, "residual": res, "plan": plan}
-        del psi, store
+    result = {"root": str(root), "card": card, "shift": args.shift,
+              "mode": args.mode, "nz": args.nz}
+    for kernel in args.kernels:
+        result[kernel] = {}
+        for spec in args.shapes:
+            P, n = (int(x) for x in spec.split("x"))
+            run, plain, checks = case(kernel, args.mode, P, n, args.nz,
+                                      args.shift, dev, g)
+            torch.cuda.synchronize()
+            errs = []
+            for got, want, rel_only in checks:
+                rel, res = errors(got, want)
+                errs.append((rel, res))
+                if not (rel <= MAX_REL and (rel_only or res <= MAX_RESIDUAL)):
+                    print(f"{kernel} at {spec}: max|d|/max|ref| {rel:.3e}, "
+                          f"residual {res:.3e}, over the bars",
+                          file=sys.stderr)
+                    return 1
+            del checks
+            n0 = fs.launches[kernel]
+            fns = [run, plain] if args.plain else [run]
+            (ms, ts), *rest = timed(fns, args.reps, args.rounds)
+            if fs.launches[kernel] - n0 != args.rounds * args.reps + 1:
+                print(f"{kernel} at {spec}: the kernel was not launched",
+                      file=sys.stderr)
+                return 1
+            plan = dict(getattr(fo, "last_launch", {}).get(kernel, {}))
+            entry = {"ms": ms, "rounds_ms": ts, "max_rel": errs[0][0],
+                     "residual": errs[0][1], "plan": plan}
+            line = (f"{kernel} {args.mode if kernel == 'k4' else ''} at "
+                    f"{spec}^2{' shifted' if args.shift else ''}: {ms:.4f} ms")
+            if rest:
+                entry["plain_ms"], entry["plain_rounds_ms"] = rest[0]
+                line += f", plain {entry['plain_ms']:.4f} ms"
+            print(f"{line} (median of {args.rounds} rounds of {args.reps}, "
+                  f"{min(ts):.4f}..{max(ts):.4f}); max|d|/max|ref| "
+                  f"{errs[0][0]:.2e}, residual {errs[0][1]:.2e}; plan {plan}; "
+                  f"root {root}; card {card}")
+            result[kernel][spec] = entry
+            del run, plain
+            torch.cuda.empty_cache()
     print(json.dumps(result))
     return 0
 

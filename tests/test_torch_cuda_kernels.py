@@ -129,7 +129,10 @@ def test_wrappers_raise_on_ineligible_cuda_tensors(dev):
 
 # --- K4, K5 (mixed-radix chain) and K6 (resident loop) ----------------------
 
-MR_SIZES = [258, 384, 387, 1018, 1023, 1152]
+# 1280, 2304, 3968: K4's and K5's tiles of 4, 2 and 2 lanes; 1018: a
+# direct-sum stage (509), which dispatch no longer sends here but the
+# kernels still take
+MR_SIZES = [258, 384, 387, 1018, 1023, 1152, 1280, 2304, 3968]
 
 
 def _prop(dev, nx, ny):
@@ -138,10 +141,21 @@ def _prop(dev, nx, ny):
                             device=dev)
 
 
+def _grid_ok(run):
+    """A persistent launch's grid: at most its tiles and what the card
+    holds at once."""
+    assert 1 <= run["grid"] <= min(run["tiles"],
+                                   run["blocks_per_sm"] * run["sms"])
+
+
 @pytest.mark.parametrize("n", MR_SIZES)
-@pytest.mark.parametrize("P", [1, 16])
+@pytest.mark.parametrize("P", [1, 3, 16, 32])
 @pytest.mark.parametrize("mode", ["first", "mid", "last", "only"])
 def test_row_pass_mr_matches_plain(dev, n, P, mode):
+    """K4 on P x nx x n (odd and even n among MR_SIZES; nx = 387, a ragged
+    last tile, or 258), with the phase and the complex plane, in place
+    too. P = 3 gives a tile count that is no multiple of the persistent
+    grid; P = 32 several rounds of it."""
     psi = _wave(dev, P, 387 if n != 387 else 258, n)
     nx = psi.shape[1]
     sv = _phase(dev, nx, n)
@@ -150,9 +164,10 @@ def test_row_pass_mr_matches_plain(dev, n, P, mode):
         got = fo.row_pass_mr(mode, psi, t)
         assert fs.launches["k4"] == n0 + 1
         _ok(got, fs._plain_row_pass(mode, psi, t))
-    buf = psi.clone()
-    assert fo.row_pass_mr(mode, buf, t, out=buf) is buf       # in place
-    _ok(buf, got)
+        _grid_ok(fo.last_launch["k4"])
+        buf = psi.clone()
+        assert fo.row_pass_mr(mode, buf, t, out=buf) is buf       # in place
+        _ok(buf, got)
 
 
 @pytest.mark.parametrize("n", MR_SIZES)
@@ -168,9 +183,7 @@ def test_col_pass_mr_matches_plain(dev, n, P):
         got = fo.col_pass_mr(psi, prop)
         assert fs.launches["k5"] == n0 + 1
         _ok(got, fs._plain_col_pass(psi, prop))
-        run = fo.last_launch
-        assert run["grid"] <= min(run["tiles"],
-                                  run["blocks_per_sm"] * run["sms"])
+        _grid_ok(fo.last_launch["k5"])
         buf = psi.clone()
         assert fo.col_pass_mr(buf, prop, out=buf) is buf       # in place
         _ok(buf, got)

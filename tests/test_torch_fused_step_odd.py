@@ -149,29 +149,65 @@ def test_unsupported_grid_and_mode_raise():
         todd.col_pass_mr(meta, torch.empty((387, 387), device="meta"))
 
 
-# the CUDA tests' MR_SIZES, and 3968 = 128 * 31 (two columns at most)
-@pytest.mark.parametrize("n", [258, 384, 387, 1018, 1023, 1152, 3968])
+# the CUDA tests' MR_SIZES: 4, 2 and 2 lanes a tile from 1280, 2304, 3968;
+# 4096, the largest axis, takes 229,376 of the 232,448 bytes
+PLAN_SIZES = [258, 384, 387, 1018, 1023, 1152, 1280, 2304, 3968, 4096]
+
+
+def _check_plan(plan, n, lanes_total, n_probes):
+    """A tile plan fits a block's shared memory and the kernels' thread
+    cap in whole warps, is the widest tile that fits (up to 8 lanes), and
+    its tiles cover every (probe, lane) exactly once (the kernels' walk:
+    tile u is lanes (u % tpp) * lanes .. of probe u // tpp)."""
+    assert plan.smem_bytes == 8 * (3 * n * plan.lanes + n) <= todd.SMEM_MAX
+    wider = 8 * (3 * n * 2 * plan.lanes + n)
+    assert plan.lanes == 8 or wider > todd.SMEM_MAX
+    assert plan.lanes == {True: 8, False: 4 if n <= 2235 else 2}[n <= 1162]
+    assert plan.threads % 32 == 0
+    assert 32 <= plan.threads == todd.TILE_THREADS <= 384 - 96
+    tpp = -(-lanes_total // plan.lanes)
+    assert plan.tiles == n_probes * tpp
+    seen = np.zeros((n_probes, lanes_total), int)
+    for u in range(plan.tiles):
+        x0 = (u % tpp) * plan.lanes
+        seen[u // tpp, x0:min(x0 + plan.lanes, lanes_total)] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n", PLAN_SIZES)
 @pytest.mark.parametrize("n_probes", [1, 16, 32])
 def test_col_tile_plan(n, n_probes):
-    """K5's plan fits a block's shared memory and the kernel's thread cap
-    in whole warps, keeps >= 90% of the threads busy in the radix-31 stage
-    at 1023, and its tiles cover every (probe, column) exactly once (the
-    kernel's walk: tile u is columns (u % tpp) * cols .. of probe
-    u // tpp)."""
+    """K5's plan (``tile_plan``) on an axis of n (nx) for n or 393
+    columns; >= 90% of the threads busy in the radix-31 stage at 1023."""
     f = todd.stage_radices(n)
     assert int(np.prod(f)) == n
     for ny in (n, 393):
-        plan = todd.col_tile_plan(n, n_probes, ny)
-        assert plan.smem_bytes == 8 * (3 * n * plan.cols + n) <= 232448
-        assert plan.threads % 32 == 0
-        assert 32 <= plan.threads == todd.K5_THREADS <= 1024
+        plan = todd.tile_plan(n, n_probes, ny)
+        _check_plan(plan, n, ny, n_probes)
         if n == 1023:
-            assert (plan.cols, plan.threads) == (8, 288)
+            assert (plan.lanes, plan.threads) == (8, 288)
             assert plan.busy >= 0.9
-        tpp = -(-ny // plan.cols)
-        assert plan.tiles == n_probes * tpp
-        seen = np.zeros((n_probes, ny), int)
-        for u in range(plan.tiles):
-            y0 = (u % tpp) * plan.cols
-            seen[u // tpp, y0:min(y0 + plan.cols, ny)] += 1
-        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n", PLAN_SIZES)
+@pytest.mark.parametrize("n_probes", [1, 16, 32])
+def test_row_tile_plan(n, n_probes):
+    """K4's plan (``tile_plan``) on an axis of n (ny) for n or 387 rows (a
+    ragged last tile: 387 = 48 * 8 + 3)."""
+    for nx in (n, 387):
+        _check_plan(todd.tile_plan(n, n_probes, nx), n, nx, n_probes)
+
+
+# (n, its largest stage radix): the kernels' registers take up to 31
+PREFERRED = [(1023, 31), (1054, 31), (3968, 31), (1024, 16), (1152, 16),
+             (384, 16), (513, 19), (520, 13), (999, 37), (1032, 43),
+             (387, 43), (258, 43), (1005, 67), (1016, 127), (393, 131),
+             (1006, 503), (1018, 509)]
+
+
+@pytest.mark.parametrize("n,radix", PREFERRED)
+def test_kernel_preferred_mr(n, radix):
+    assert todd.supported_size_mr(n) and todd.supported_size_mr(n, 16)
+    assert max(todd.stage_radices(n)) == radix
+    assert todd.kernel_preferred_mr(n) == (radix <= todd.KERNEL_MAX_RADIX)
+    assert todd.KERNEL_MAX_RADIX == 31

@@ -175,6 +175,9 @@ PRE_T = ("JAX prefers its odd resident kernel at any probe count where "
          "the port keeps the probe-pixel crossover")
 CROSS = ("JAX's odd crossover is 3,000,000 probe-pixels; the port keeps the "
          "one crossover of resident_preferred, 3 * 2^20")
+PRIME = ("a stage prime above 31 ({}) is a direct sum in the port's kernels "
+         "(an MXU product in JAX's), which loses to the plain passes on the "
+         "H100 (kernel_preferred_mr; PERF.md)").format
 
 # (probes, nx, ny, nz, JAX family, port family, why they differ)
 TABLE = [
@@ -195,14 +198,22 @@ TABLE = [
     (4, 384, 384, 14, "resident", "odd_resident", N1X128),
     (16, 384, 384, 14, "resident", "odd_resident", N1X128),
     (1, 640, 640, 14, "resident", "odd_resident", N1X128),
-    (1, 1018, 1018, 14, "odd_resident", "odd_resident", None),
-    (16, 1018, 1018, 14, "odd_resident", "odd", PRE_T),
+    (1, 1018, 1018, 14, "odd_resident", None, PRIME(509)),
+    (16, 1018, 1018, 14, "odd_resident", None, PRIME(509)),
+    (16, 1023, 1018, 14, "odd", None, PRIME("509 on y")),
+    (1, 1016, 1016, 14, "odd_resident", None, PRIME(127)),
+    (16, 1016, 1016, 14, "odd_resident", None, PRIME(127)),
+    (1, 1032, 1032, 14, "odd_resident", None, PRIME(43)),
+    (16, 1032, 1032, 14, "odd", None, PRIME(43)),
+    (1, 387, 387, 14, "odd_resident", None, PRIME(43)),
+    (16, 387, 387, 14, "odd_resident", None, PRIME(43)),
+    (16, 999, 999, 14, "odd_resident", None, PRIME(37)),
     (64, 513, 513, 14, "odd_resident", "odd", PRE_T),
     (1, 513, 513, 14, "odd_resident", "odd_resident", None),
     (1, 1024, 1023, 14, "odd", "odd_resident", VMEM + ": _vmem_estimate"),
-    (1, 387, 393, 3, "odd_resident", "odd_resident", None),
-    (4, 258, 387, 2, "odd_resident", "odd_resident", None),
-    (16, 387, 393, 3, "odd_resident", "odd_resident", None),
+    (1, 387, 393, 3, "odd_resident", None, PRIME("43, 131")),
+    (4, 258, 387, 2, "odd_resident", None, PRIME(43)),
+    (16, 387, 393, 3, "odd_resident", None, PRIME("43, 131")),
     (1, 1009, 1009, 14, None, None, None),     # prime: XLA / plain
     (16, 1009, 1009, 14, None, None, None),
     (1, 385, 385, 14, None, None, None),       # 5 * 77: m < 128
@@ -226,7 +237,7 @@ def test_family_table_against_jax(row):
 def test_pick_fused_reads_flags_and_device(monkeypatch):
     meta = torch.empty((1, 1023, 1023), dtype=torch.complex64, device="meta")
     assert tprop.pick_fused(meta, tprop.get_precision("single"), 14) is None
-    psi = torch.zeros((1, 387, 393), dtype=torch.complex64)
+    psi = torch.zeros((1, 384, 1023), dtype=torch.complex64)
     assert tprop.pick_fused(psi, tprop.get_precision("single"), 3) is None
     # on a CUDA tensor the family comes from fused_family and the flags
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda s: True))
