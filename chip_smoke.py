@@ -31,8 +31,9 @@ Phases, each printing one line (or a few) and failing hard:
    nz - 1 times a frame, HAADF finite and positive;
 9. the adjoint's kernels against their plain versions: K7 at 16 pairs x
    1024^2 and K8 at 16 pairs x 1023^2 (mid mode with planes and with the
-   phase, last mode), then each whole adjoint chain (14 slices) against its
-   plain twin on lambda_0 and vbar;
+   phase, last mode; K8 with its tile plan and persistent grid), then each
+   whole adjoint chain (14 slices) against its plain twin on lambda_0 and
+   vbar;
 10. multislice ptychography at 1024^2 and at 1023^2: frame 0 of the boxes
    of phases 5 and 8, data from the kernel forward (64 positions on an
    8 x 8 scan), the gradients of one minibatch loss (V and probe) through
@@ -598,6 +599,7 @@ def adjoint_kernel_phase(dev, P=N_PROBES, nz=N_SLICES,
     from pyslice_tpu_torch.core.constants import (interaction_parameter,
                                                   wavelength)
     from pyslice_tpu_torch.ops import fused_step_adjoint as fa
+    from pyslice_tpu_torch.ops import fused_step_odd as fo
 
     lam, sigma = wavelength(100e3), interaction_parameter(100e3)
     kernels = {"k7": (fa.row_pass_bwd, fa.fused_adjoint_chain),
@@ -644,6 +646,11 @@ def adjoint_kernel_phase(dev, P=N_PROBES, nz=N_SLICES,
         records.update(records_for({key: err}, {key: timing},
                                    {key: kernel_bound("pairs", P, n)},
                                    f"{P} pairs x {n}^2, mid"))
+        if key == "k8":
+            plan = dict(fo.last_launch["k8"])
+            print(f"    K8 tile plan and persistent grid at {P} pairs x "
+                  f"{n}^2: {plan}")
+            records["k8"]["plan"] = plan
         del state
     return records
 

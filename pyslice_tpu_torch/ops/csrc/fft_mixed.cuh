@@ -1,6 +1,8 @@
 // The mixed-radix FFT engine in shared memory, for an axis of any length
-// n <= 4096: used by kernels K4 and K5 (fused_step_odd.cu) and by the
-// resident slice loop (resident.cu) on grids that are not powers of two.
+// n <= 4096, on grids that are not powers of two: the resident slice loop
+// K6 (resident.cu) runs it whole; the persistent passes K4, K5 and K8
+// (tile_async.cuh) take its plan and its large-prime stage sk_generic and
+// run their other stages with tile_pass.
 //
 // Order: Stockham autosort. Every stage reads one shared-memory buffer and
 // writes the other, so the transform takes natural order in and gives

@@ -5,68 +5,141 @@
 //   K8  pair-packed row pass, odd grids  <- _kernel_a_bwd_odd via
 //       _call_a_bwd_odd (pallas_call at fused_step_adjoint.py:346)
 //
-// The same work as K7 (fused_step_adjoint.cu; tiles.cuh: pair_row_tile) on
-// the mixed-radix Stockham engine of fft_mixed.cuh, which K4 and K5 use:
-// the pair stream, the transmission plane and vbar all stay in natural
-// order. The TPU kernel's digit-split tiles and its (dx, mx, dy, my) vbar
-// stripe layout were limits of Pallas on the TPU and are not carried over.
+// The work of K7 (fused_step_adjoint.cu, which keeps tiles.cuh's
+// pair_row_tile) on the mixed-radix Stockham engine, for the (2 P, nx, ny)
+// pair stream whose rows 2p and 2p + 1 are (a_p, lambda_p): IFFT_y of both
+// members, vbar += -sigma Im(conj(lambda_p) a_p) summed over p in pair
+// order, then in mid mode x t (the caller's conjugated plane, or the
+// negated phase) and FFT_y, in last mode the real-space pair. The pair
+// stream, the transmission plane and vbar all stay in natural order. The
+// TPU kernel's digit-split tiles and its (dx, mx, dy, my) vbar stripe
+// layout were limits of Pallas on the TPU and are not carried over.
 //
-// What bounds it on an H100: the pair stream in and out once, ~0.27 GB or
-// ~0.08 ms at 3.35 TB/s for 16 pairs x 1023^2 (data sheet), and the
-// mixed-radix FFT work, which for the one-block-a-tile K4 at 16 x 1023^2
-// was 0.51 ms a launch against that floor (PERF.md). K8 does that K4's
-// mid-mode work on twice the rows, so it should take about twice its
-// time; the vbar sum adds one multiply-add a point and one store a plane.
-// K4 has since become a persistent kernel with producer warps
-// (tile_async.cuh), whose row tile K8 does not share yet.
+// What bounds it on an H100: the pair stream in and out once and one t
+// plane, 548 MB or 0.164 ms at 3.35 TB/s for 16 pairs x 1023^2 (data
+// sheet), against which the design before this one took 0.96 ms (PERF.md):
+// one block a tile, synchronous loads fenced by barriers, the sk_pass
+// stages with their per-thread constants (112/304 bytes of spills).
 //
-// Shared memory: two Stockham buffers of 2^(logr+1) columns plus the vbar
-// rows: 73,656 bytes at 1023 (two rows), above the 48 KB default, so the
-// launch opts in with cudaFuncSetAttribute (up to ~144 KB at 4096, one
-// row). Two blocks an SM (__launch_bounds__(256, 2)).
+// The design is K4's and K5's (tile_async.cuh): persistent blocks whose
+// three producer warps store the previous result and copy the next item
+// into a third buffer (cp.async) while the consumers run tile_pass stages
+// with constant-bank DFT constants. A tile is 2^logc lanes, lane 2r + c
+// member c of row r, 2^(logc-1) rows (RowTileCopy<1>). The walk is row
+// tile by row tile, each through all pairs in order (persistent_tiles with
+// per = n_pairs), so the producers prefetch pair p + 1 of the same rows
+// while pair p transforms, and the block's vbar rows stay in shared memory
+// from the row tile's first pair to its last: the sum is taken in pair
+// order by one thread an element, without atomics, and the same inputs
+// give bit-identical vbar and output. pair_tile_compute holds the modes.
+// Measured (PERF.md, scripts/time_col_pass_mr.py, H100 at 700 W): 0.64 ms
+// in mid mode at 16 pairs x 1023^2 against 0.96 for the design it
+// replaced.
+//
+// Shared memory (ops/fused_step_odd.py pair_tile_plan): three tile
+// buffers, the twiddle table and the vbar rows, 8 (3 (n << logc) + n) +
+// 4 n 2^(logc-1) bytes: 8 lanes (4 rows) up to n = 1076 (220,968 bytes at
+// 1023, one block an SM, 256 row tiles on 132 SMs at nx = 1023), 4 lanes
+// up to 2075, 2 lanes up to 3874. Above that (3968, 4096) not even two
+// lanes fit beside the table, so the table stays in device memory, where
+// sk_generic reads it anyway (kSharedTable false: 52 n bytes, 212,992 at
+// 4096). The other way out, two buffers without prefetch, would give up
+// the overlap of copies and stages that is this design's point; the table
+// reads are one twiddle an item a stage, and they hit in L2.
 //
 // No fast-math (sincosf for the phase mode). Plain C interface for ctypes:
 // the function launches on the given stream and returns the CUDA error as
 // an int.
 
-#include "tiles.cuh"
+#include "tile_async.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMinBlocks = 2;
-
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// K8: unit u is rows u << (logc - 1) .. of every pair; item v is pair
+// v % n_pairs of row tile v / n_pairs. t is the (nx, ny) complex plane or,
+// with kPhase, sv the phase; neither is read in last mode.
+template <bool kPhase, bool kSharedTable>
+__global__ void __launch_bounds__(kMaxThreads, 1)
 row_pass_bwd_mr_kernel(float2* out, const float2* in,
                        const float2* __restrict__ t,
                        const float* __restrict__ sv, float* __restrict__ vbar,
-                       MixedEng ey, int n_pairs, int nx, int logr, int last,
-                       float nsigma) {
-  extern __shared__ float2 smem[];
-  const size_t cols = (size_t)ey.n << (logr + 1);
-  pair_row_tile(ey, smem, smem + cols, (float*)(smem + 2 * cols), out, in, t,
-                sv, vbar, n_pairs, blockIdx.x << logr, nx, logr, last != 0,
-                nsigma, threadIdx.x, blockDim.x);
+                       MixedEng ey, int n_pairs, int nx, int logc,
+                       int n_tiles, int last, float nsigma) {
+  extern __shared__ __align__(16) float2 smem16[];
+  const int n = ey.n;
+  const size_t slots = (size_t)n << logc;
+  const float2* tws = ey.tw;
+  float* vb = reinterpret_cast<float*>(smem16 + 3 * slots);
+  if constexpr (kSharedTable) {
+    float2* table = smem16 + 3 * slots;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) table[i] = ey.tw[i];
+    tws = table;
+    vb = reinterpret_cast<float*>(table + n);
+  }
+  const int logr = logc - 1;
+  // stages: 2 nf for mid, nf for last
+  const bool odd = last && (ey.plan.nf & 1);
+  const float nsig = nsigma / ((float)n * (float)n);
+  persistent_tiles(
+      smem16, slots, n_tiles, n_pairs, odd, out,
+      [&](float2* s, int v) {
+        return RowTileCopy<1>{s, in, n, nx, v % n_pairs,
+                              (v / n_pairs) << logr, logc};
+      },
+      [&](float2* cur, float2* spare, int v, int tid, int nt) {
+        const int p = v % n_pairs;
+        const size_t x0 = (size_t)((v / n_pairs) << logr);
+        const RowT<kPhase, 1> m{kPhase ? nullptr : t + x0 * n,
+                                kPhase ? sv + x0 * n : nullptr, n,
+                                nx - (int)x0, 1.0f / (float)n};
+        pair_tile_compute(ey, cur, spare, tws, vb, vbar + x0 * n, m,
+                          last != 0, p == 0, p == n_pairs - 1, nsig, logc,
+                          tid, nt);
+      });
+}
+
+// Host: K8's shared memory: the tile buffers, the twiddle table where it
+// sits there, and 2^(logc-1) vbar rows of n floats.
+size_t pair_tile_smem(int n, int logc, bool shared_table) {
+  return (kBuffers * ((size_t)n << logc) + (shared_table ? n : 0)) *
+             sizeof(float2) +
+         ((size_t)n << (logc - 1)) * sizeof(float);
 }
 
 }  // namespace
 
 extern "C" {
 
+// K8. t the complex plane, or sv the phase (t null); both null in last
+// mode. logc, threads (the consumers; the block adds the producers) and
+// shared_table (the twiddle table in shared memory, else device memory):
+// the tile plan (ops/fused_step_odd.py pair_tile_plan). info receives the
+// grid, blocks per SM, SMs and the dynamic shared memory in bytes.
 int fs_row_pass_bwd_mr(void* out, const void* in, const void* t,
                        const void* sv, void* vbar, const void* tw,
                        int n_pairs, int nx, int ny, int last, float nsigma,
+                       int logc, int threads, int shared_table, int* info,
                        void* stream) {
-  const int logr = pair_tile_logr<MixedEng>(ny);
-  const size_t bytes = pair_tile_bytes<MixedEng>(ny, logr);
-  const cudaError_t err = cudaFuncSetAttribute(
-      row_pass_bwd_mr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  const MixedEng ey = mixed_eng(tw, ny);
+  if (!plan_ok(ey.plan, logc, threads) || logc < 1 || n_pairs < 1 ||
+      (!last && t == nullptr && sv == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = pair_tile_smem(ny, logc, shared_table != 0);
+  const int block = threads + kProducers;
+  const int rows = 1 << (logc - 1);
+  const int tiles = (nx + rows - 1) / rows;
+  const bool phase = !last && sv != nullptr;
+  const auto kernel =
+      phase ? (shared_table ? row_pass_bwd_mr_kernel<true, true>
+                            : row_pass_bwd_mr_kernel<true, false>)
+            : (shared_table ? row_pass_bwd_mr_kernel<false, true>
+                            : row_pass_bwd_mr_kernel<false, false>);
+  const cudaError_t err = persistent_grid(kernel, block, smem, tiles, info);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (nx + (1 << logr) - 1) >> logr;
-  row_pass_bwd_mr_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)info[0], block, smem, (cudaStream_t)stream>>>(
       (float2*)out, (const float2*)in, (const float2*)t, (const float*)sv,
-      (float*)vbar, mixed_eng(tw, ny), n_pairs, nx, logr, last, nsigma);
+      (float*)vbar, ey, n_pairs, nx, logc, tiles, last, nsigma);
   return (int)cudaGetLastError();
 }
 

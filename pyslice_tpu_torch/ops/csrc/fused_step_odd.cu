@@ -24,7 +24,9 @@
 // (37 to 509), so dispatch sends those axes to the plain loop
 // (fused_step_odd.py kernel_preferred_mr; PERF.md).
 //
-// Both kernels have one design. Persistent blocks, one an SM at 1023 (the
+// Both kernels have one design, which K8 (fused_step_adjoint_odd.cu)
+// shares: the walk persistent_tiles and its sizing persistent_grid live in
+// tile_async.cuh. Persistent blocks, one an SM at 1023 (the
 // occupancy query), walk the (probe, tile) pairs, tile u = blockIdx.x +
 // k gridDim.x, probe-major: the blocks in flight cover about one probe,
 // and the next probe reads the t or prop plane (8 MB at 1023^2) again
@@ -70,65 +72,6 @@
 
 namespace {
 
-// The most threads a block, the producer warps included (the plans keep to
-// it, so the register cap is 65536 / 384 = 170), the producer threads, and
-// the tile buffers.
-constexpr int kMaxThreads = 384;
-constexpr int kProducers = 96;
-constexpr int kBuffers = 3;
-
-// The persistent walk of K4 and K5 over n_tiles (probe, tile) pairs: tile
-// u = blockIdx.x + k gridDim.x, the grid at most n_tiles. smem holds three
-// tile buffers of `slots` slots. The block's last kProducers threads are
-// the producers: while the other warps, the consumers, transform tile u in
-// `cur` and `spare` (compute(cur, spare, u, tid, nt)), they store the
-// block's previous result from `next` and then copy tile u + gridDim.x
-// into it (cp.async, and wait for the copies); a block-wide barrier a tile
-// hands the buffers over. The transform ends in `cur`, or in `spare` after
-// an odd count of stages (`odd`), and that buffer becomes the next tile's
-// `next`. tile(s, v) is tile v's copy (TileCopy, RowTileCopy) in buffer s.
-template <class Tile, class Compute>
-__device__ void persistent_tiles(float2* smem, size_t slots, int n_tiles,
-                                 bool odd, float2* out, Tile tile,
-                                 Compute compute) {
-  const int tid = threadIdx.x;
-  const int nc = blockDim.x - kProducers;    // consumer threads
-  const bool producer = tid >= nc;
-  float2* cur = smem;                 // this tile
-  float2* spare = smem + slots;       // the Stockham pair's second buffer
-  float2* next = smem + 2 * slots;    // the last result, then the next tile
-  int u = blockIdx.x;
-  if (producer) {
-    tile(cur, u).issue(tid - nc, kProducers);
-    cp_async_commit();
-    cp_async_wait_all();
-  }
-  __syncthreads();
-  for (; u < n_tiles; u += gridDim.x) {
-    const int un = u + gridDim.x;
-    if (!producer) {
-      compute(cur, spare, u, tid, nc);
-    } else {
-      if (u != (int)blockIdx.x) {
-        tile(next, u - gridDim.x).store(out, tid - nc, kProducers);
-        bar_sync_last(kProducers);
-      }
-      if (un < n_tiles) {
-        tile(next, un).issue(tid - nc, kProducers);
-        cp_async_commit();
-        cp_async_wait_all();
-      }
-    }
-    __syncthreads();          // `next` has landed; tile u's result is done
-    float2* res = odd ? spare : cur;
-    float2* other = odd ? cur : spare;
-    cur = next;
-    spare = other;
-    next = res;
-  }
-  if (producer) tile(next, u - gridDim.x).store(out, tid - nc, kProducers);
-}
-
 // K5: tile u is columns (u % tpp) << logc .. of probe u / tpp, tpp tiles
 // a probe; FFT_x, x prop / n, IFFT_x (col_tile_compute, 2 nf stages).
 __global__ void __launch_bounds__(kMaxThreads, 1)
@@ -141,7 +84,7 @@ col_pass_mr_kernel(float2* out, const float2* in,
   float2* tws = smem16 + 3 * slots;   // the twiddle table
   for (int i = threadIdx.x; i < n; i += blockDim.x) tws[i] = ex.tw[i];
   persistent_tiles(
-      smem16, slots, n_tiles, false, out,
+      smem16, slots, n_tiles, 1, false, out,
       [&](float2* s, int v) {
         return TileCopy{s, in, n, ny, v / tpp, (v % tpp) << logc, logc,
                         vec16 != 0};
@@ -173,9 +116,10 @@ row_pass_mr_kernel(float2* out, const float2* in,
   const float scale = (mode == kMid || mode == kLast) ? 1.0f / (float)n
                                                       : 1.0f;
   persistent_tiles(
-      smem16, slots, n_tiles, odd, out,
+      smem16, slots, n_tiles, 1, odd, out,
       [&](float2* s, int v) {
-        return RowTileCopy{s, in, n, nx, v / tpp, (v % tpp) << logc, logc};
+        return RowTileCopy<0>{s, in, n, nx, v / tpp, (v % tpp) << logc,
+                              logc};
       },
       [&](float2* cur, float2* spare, int u, int tid, int nt) {
         const size_t x0 = (size_t)((u % tpp) << logc);
@@ -189,44 +133,6 @@ row_pass_mr_kernel(float2* out, const float2* in,
 // Host: the shared memory of a tile of 2^logc lanes of n and the table.
 size_t tile_smem(int n, int logc) {
   return (kBuffers * ((size_t)n << logc) + n) * sizeof(float2);
-}
-
-// Host: opt `kernel` in to smem bytes of shared memory and size its
-// persistent grid, the blocks the occupancy query fits on the card, at
-// most `tiles`. info receives the grid, blocks per SM, SMs and smem.
-template <class K>
-cudaError_t persistent_grid(K kernel, int block, size_t smem, long tiles,
-                            int* info) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  int dev = 0;
-  int sms = 0;
-  int per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                         block, smem);
-  }
-  if (err != cudaSuccess) return err;
-  long grid = (long)per_sm * sms;
-  if (grid > tiles) grid = tiles;
-  info[0] = (int)grid;
-  info[1] = per_sm;
-  info[2] = sms;
-  info[3] = (int)smem;
-  return grid < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
-}
-
-// Host: whether a tile plan (logc, consumer threads) is one the kernels
-// take on an axis of this plan: 1 to 8 lanes, whole consumer warps within
-// kMaxThreads with the producers, and a first stage in registers (the one
-// that takes the pass's product).
-bool plan_ok(const MixedPlan& pl, int logc, int threads) {
-  return logc >= 0 && logc <= 3 && threads >= 32 && threads % 32 == 0 &&
-         threads + kProducers <= kMaxThreads && pl.nf >= 1 && pl.f[0] <= 31;
 }
 
 }  // namespace

@@ -1,14 +1,18 @@
 // The tiles of the persistent mixed-radix passes K4 (the row pass) and K5
-// (the column pass) of fused_step_odd.cu: their stage routine, the copies
+// (the column pass) of fused_step_odd.cu and K8 (the adjoint's backward
+// row pass) of fused_step_adjoint_odd.cu: their stage routine, the copies
 // of a tile between device memory and shared memory that their producer
 // warps run (cp.async in, plain stores out) while their consumer warps
-// transform, and each pass's transform of one tile (row_tile_compute,
-// col_tile_compute). K6 and K8 keep the tile functions of tiles.cuh and
-// the stage routine sk_pass of fft_mixed.cuh.
+// transform, each pass's transform of one tile (row_tile_compute,
+// col_tile_compute, pair_tile_compute), and the persistent walk and launch
+// sizing the three share (persistent_tiles, persistent_grid, plan_ok). K6
+// and K7 keep the tile functions of tiles.cuh and the stage routine
+// sk_pass of fft_mixed.cuh.
 //
 // Layout as in tiles.cuh: a tile holds 2^logc lanes side by side (K5: the
-// wave's columns; K4: its rows), element (i, c) at s[(i << logc) + c],
-// natural order on both sides of each transform (the Stockham engine).
+// wave's columns; K4: its rows; K8: its rows' pair members, lane 2r + c
+// member c of row r), element (i, c) at s[(i << logc) + c], natural order
+// on both sides of each transform (the Stockham engine).
 //
 // tile_pass is sk_pass with two changes: the R-point DFT's constants
 // cos/sin(2 pi m / R) come from a __constant__ table at indices that are
@@ -101,14 +105,15 @@ struct TileProp {
   }
 };
 
-// K4's: the transmission at the tile's rows, t + x0 n of the (nx, n) plane
-// (lane c is row x0 + c, of which `rows` - c remain), times the scale. t
-// is the complex plane or, with kPhase, sv is the phase sigma*V, from which
-// cos/sin are taken here (sincosf, no fast-math: the phases run to tens of
-// radians). A lane past the plane's last row reads that row (the lane is
-// never stored). The loads carry no branch and no select, so an unrolled
-// loop issues them all before it waits for any.
-template <bool kPhase>
+// K4's and K8's: the transmission at the tile's rows, t + x0 n of the
+// (nx, n) plane (lane c is row x0 + (c >> kLaneShift), of which `rows`
+// remain from x0; K8's lanes 2r and 2r + 1 share row r), times the scale.
+// t is the complex plane or, with kPhase, sv is the phase sigma*V, from
+// which cos/sin are taken here (sincosf, no fast-math: the phases run to
+// tens of radians). A lane past the plane's last row reads that row (the
+// lane is never stored). The loads carry no branch and no select, so an
+// unrolled loop issues them all before it waits for any.
+template <bool kPhase, int kLaneShift = 0>
 struct RowT {
   static constexpr bool kActive = true;
   const float2* __restrict__ t;
@@ -117,7 +122,7 @@ struct RowT {
   int rows;
   float scale;
   __device__ __forceinline__ float2 at(int i, int c) const {
-    const size_t k = (size_t)min(c, rows - 1) * n + i;
+    const size_t k = (size_t)min(c >> kLaneShift, rows - 1) * n + i;
     float2 v;
     if constexpr (kPhase) {
       sincosf(__ldg(&sv[k]), &v.y, &v.x);
@@ -352,11 +357,16 @@ struct TileCopy {
   }
 };
 
-// A row tile's copies (K4): rows x0 .. x0 + 2^logc - 1 of probe p (rows of
-// n elements), element i of row x0 + r at s[(i << logc) + r]. Slot q holds
-// row q mod 2^logc, so a warp's 32 copies fill 32 neighbouring slots and
-// read 32 / 2^logc elements of each of the tile's rows. 8 bytes a copy: a
-// row's neighbouring elements sit 2^logc slots apart.
+// A row tile's copies (rows of n elements). K4's (kPair 0): rows x0 .. x0
+// + 2^logc - 1 of probe p, lane c row x0 + c. K8's (kPair 1): rows x0 ..
+// x0 + 2^(logc-1) - 1 of pair p of the (2 P, nx, n) stream, lane c member
+// c & 1 (plane 2p + (c & 1)) of row x0 + (c >> 1); the two members of a
+// row sit nx n elements apart. Element i of lane c at s[(i << logc) + c].
+// Slot q holds lane q mod 2^logc, so a warp's 32 copies fill 32
+// neighbouring slots and read 32 / 2^logc elements of each of the tile's
+// lanes. 8 bytes a copy: a lane's neighbouring elements sit 2^logc slots
+// apart.
+template <int kPair>
 struct RowTileCopy {
   float2* s;
   const float2* in;
@@ -366,28 +376,32 @@ struct RowTileCopy {
   int x0;
   int logc;
 
+  // Lane c's row: its offset from the tensor's start, in elements.
+  __device__ __forceinline__ size_t row(int c) const {
+    return ((size_t)((p << kPair) + (c & kPair)) * nx + x0 + (c >> kPair)) *
+           n;
+  }
+
   // Issue the copies of the tile from `in` (cp.async; the caller commits
   // and waits); rows past nx are zero-filled.
   __device__ void issue(int tid, int nt) const {
-    const float2* src = in + ((size_t)p * nx + x0) * n;
-    const int rmask = (1 << logc) - 1;
+    const int cmask = (1 << logc) - 1;
     const int tot = n << logc;
     for (int q = tid; q < tot; q += nt) {
-      const int r = q & rmask;
-      const bool ok = x0 + r < nx;
-      cp_async8(s + q, ok ? src + (size_t)r * n + (q >> logc) : in, ok);
+      const int c = q & cmask;
+      const bool ok = x0 + (c >> kPair) < nx;
+      cp_async8(s + q, ok ? in + row(c) + (q >> logc) : in, ok);
     }
   }
 
   // Store the tile to the same rows of `out`, those below nx.
   __device__ void store(float2* out, int tid, int nt) const {
-    float2* dst = out + ((size_t)p * nx + x0) * n;
-    const int rmask = (1 << logc) - 1;
+    const int cmask = (1 << logc) - 1;
     const int tot = n << logc;
 #pragma unroll 4
     for (int q = tid; q < tot; q += nt) {
-      const int r = q & rmask;
-      if (x0 + r < nx) dst[(size_t)r * n + (q >> logc)] = s[q];
+      const int c = q & cmask;
+      if (x0 + (c >> kPair) < nx) out[row(c) + (q >> logc)] = s[q];
     }
   }
 };
@@ -427,6 +441,31 @@ __device__ void col_tile_compute(const MixedEng& ex, float2* cur,
   }
 }
 
+// One transform on the tile in `a` (`b` the second buffer, `tws` the
+// twiddle table): the plan's stages, each from one buffer into the other
+// and fenced by bar_sync_first(nt), the first stage's loads multiplied by
+// `op`. On return `a` holds the result and `b` the other buffer.
+template <bool kInv, class Op>
+__device__ void tile_transform(const MixedEng& e, float2*& a, float2*& b,
+                               const float2* tws, const Op& op, int logc,
+                               int tid, int nt) {
+  const MixedPlan& pl = e.plan;
+  int ns = 1;
+  for (int i = 0; i < pl.nf; ++i) {
+    const int r = pl.f[i];
+    if (i == 0) {
+      tile_stage<kInv>(r, a, b, op, e.n, logc, ns, tws, e.tw, tid, nt);
+    } else {
+      tile_stage<kInv>(r, a, b, NoOp{}, e.n, logc, ns, tws, e.tw, tid, nt);
+    }
+    bar_sync_first(nt);
+    float2* t = a;
+    a = b;
+    b = t;
+    ns *= r;
+  }
+}
+
 // K4's transform of the tile whose copies have landed in `cur` (`spare`
 // the second buffer, `tws` the twiddle table in shared memory), on the
 // first nt threads, by mode:
@@ -445,29 +484,12 @@ __device__ void row_tile_compute(const MixedEng& ey, float2* cur,
                                  float2* spare, const float2* tws,
                                  const RowT<kPhase>& m, int mode, int logc,
                                  int tid, int nt) {
-  const MixedPlan& pl = ey.plan;
   const bool fwd = mode == kFirst || mode == kMid;
   float2* a = cur;
   float2* b = spare;
-  auto stages = [&](auto inv, auto op) {
-    int ns = 1;
-    for (int i = 0; i < pl.nf; ++i) {
-      const int r = pl.f[i];
-      if (i == 0) {
-        tile_stage<decltype(inv)::value>(r, a, b, op, ey.n, logc, ns, tws,
-                                         ey.tw, tid, nt);
-      } else {
-        tile_stage<decltype(inv)::value>(r, a, b, NoOp{}, ey.n, logc, ns,
-                                         tws, ey.tw, tid, nt);
-      }
-      bar_sync_first(nt);
-      float2* t = a;
-      a = b;
-      b = t;
-      ns *= r;
-    }
-  };
-  if (mode == kMid || mode == kLast) stages(std::true_type{}, NoOp{});
+  if (mode == kMid || mode == kLast) {
+    tile_transform<true>(ey, a, b, tws, NoOp{}, logc, tid, nt);
+  }
   if (kPhase || !fwd) {
     // kU factors a thread before it multiplies, so that their loads overlap
     constexpr int kU = 8;
@@ -490,10 +512,200 @@ __device__ void row_tile_compute(const MixedEng& ey, float2* cur,
   }
   if (!fwd) return;
   if constexpr (kPhase) {
-    stages(std::false_type{}, NoOp{});
+    tile_transform<false>(ey, a, b, tws, NoOp{}, logc, tid, nt);
   } else {
-    stages(std::false_type{}, m);
+    tile_transform<false>(ey, a, b, tws, m, logc, tid, nt);
   }
+}
+
+// K8's transform of one (row tile, pair) whose copies have landed in `cur`
+// (`spare` the second buffer, `tws` the twiddle table), on the first nt
+// threads. Lane 2r + c of the tile is member c of row r (w0 = a, w1 =
+// lambda). IFFT_y of every lane (no operand), then the vbar pass: item q
+// is element i = q >> (logc - 1) of row r = q & (2^(logc-1) - 1), whose
+// two members are one 16-byte word of the tile, a4[q]; it adds
+//   nsig * Im(conj(w1) w0)        (nsig = -sigma / n^2: each member owes 1/n)
+// to vb[q], the block's vbar rows in shared memory, zeroed at the row
+// tile's first pair (`first`) and stored to the rows of `vbar` below
+// m.rows at its last (`final`). The same thread takes the same items at
+// every pair, in pair order: no atomics, and the same inputs give the
+// same bits. Then by mode:
+//   mid, complex plane:  FFT_y, x t / n in the first forward stage's loads
+//   mid, phase:          x t / n in the vbar pass (sincosf there, not in a
+//                        stage's loads, where it would spill), FFT_y
+//   last:                x 1 / n in the vbar pass; the real-space pair is
+//                        the result
+// The pass loads kU items a thread (the phase's sv too, at a clamped row)
+// before it uses any, with no select on a loaded value. The result ends in
+// `cur` (mid: 2 nf stages) or, after an odd nf, in `spare` (last). Fenced
+// by bar_sync_first(nt); it ends with one.
+template <bool kPhase>
+__device__ void pair_tile_compute(const MixedEng& ey, float2* cur,
+                                  float2* spare, const float2* tws,
+                                  float* vb, float* __restrict__ vbar,
+                                  const RowT<kPhase, 1>& m, bool last,
+                                  bool first, bool final, float nsig,
+                                  int logc, int tid, int nt) {
+  const int n = ey.n;
+  const int logr = logc - 1;
+  const int rmask = (1 << logr) - 1;
+  const int items = n << logr;
+  if (first) {
+    for (int q = tid; q < items; q += nt) vb[q] = 0.0f;
+  }
+  float2* a = cur;
+  float2* b = spare;
+  tile_transform<true>(ey, a, b, tws, NoOp{}, logc, tid, nt);
+  float4* a4 = reinterpret_cast<float4*>(a);
+  const bool writes = kPhase || last;     // the pass writes the pair back
+  constexpr int kU = 4;
+  for (int q0 = tid; q0 < items; q0 += kU * nt) {
+    float4 w[kU];
+    float2 f[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int q = min(q0 + u * nt, items - 1);
+      w[u] = a4[q];
+      if constexpr (kPhase) {
+        f[u] = m.at(q >> logr, (q & rmask) << 1);
+      } else {
+        f[u] = make_float2(m.scale, 0.0f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int q = q0 + u * nt;
+      if (q < items) {
+        const float4 v = w[u];      // (w0.x, w0.y, w1.x, w1.y)
+        const float acc = vb[q] + nsig * (v.z * v.y - v.w * v.x);
+        if (!final) {
+          vb[q] = acc;
+        } else if ((q & rmask) < m.rows) {
+          vbar[(size_t)(q & rmask) * n + (q >> logr)] = acc;
+        }
+        if (writes) {
+          const float2 w0 = cmul(make_float2(v.x, v.y), f[u]);
+          const float2 w1 = cmul(make_float2(v.z, v.w), f[u]);
+          a4[q] = make_float4(w0.x, w0.y, w1.x, w1.y);
+        }
+      }
+    }
+  }
+  bar_sync_first(nt);
+  if (last) return;
+  if constexpr (kPhase) {
+    tile_transform<false>(ey, a, b, tws, NoOp{}, logc, tid, nt);
+  } else {
+    tile_transform<false>(ey, a, b, tws, m, logc, tid, nt);
+  }
+}
+
+// --- the persistent walk of K4, K5 and K8 ---------------------------------
+
+// The most threads a block, the producer warps included (the plans keep to
+// it, so the register cap is 65536 / 384 = 170), the producer threads, and
+// the tile buffers.
+constexpr int kMaxThreads = 384;
+constexpr int kProducers = 96;
+constexpr int kBuffers = 3;
+
+// The persistent walk over n_units units of `per` items each: the block
+// takes units u = blockIdx.x + k gridDim.x (the grid at most n_units) and
+// each unit's items v = u per + s, s = 0 .. per - 1, in that order. K4 and
+// K5: a unit is a (probe, tile) pair and per is 1, so tile u = blockIdx.x
+// + k gridDim.x; K8: a unit is a row tile and its items are the pairs, in
+// pair order. smem holds three tile buffers of `slots` slots. The block's
+// last kProducers threads are the producers: while the other warps, the
+// consumers, transform item v in `cur` and `spare` (compute(cur, spare, v,
+// tid, nt)), they store the block's previous result from `next` and then
+// copy the block's next item into it (cp.async, and wait for the copies);
+// a block-wide barrier an item hands the buffers over. The transform ends
+// in `cur`, or in `spare` after an odd count of stages (`odd`), and that
+// buffer becomes the next item's `next`. tile(s, v) is item v's copy
+// (TileCopy, RowTileCopy) in buffer s.
+template <class Tile, class Compute>
+__device__ void persistent_tiles(float2* smem, size_t slots, int n_units,
+                                 int per, bool odd, float2* out, Tile tile,
+                                 Compute compute) {
+  const int tid = threadIdx.x;
+  const int nc = blockDim.x - kProducers;    // consumer threads
+  const bool producer = tid >= nc;
+  const int b = blockIdx.x;
+  const int g = gridDim.x;
+  const int n_items = per * ((n_units - 1 - b) / g + 1);
+  auto item = [&](int j) {
+    const int k = j / per;
+    return (b + k * g) * per + (j - k * per);
+  };
+  float2* cur = smem;                 // this item
+  float2* spare = smem + slots;       // the Stockham pair's second buffer
+  float2* next = smem + 2 * slots;    // the last result, then the next item
+  if (producer) {
+    tile(cur, item(0)).issue(tid - nc, kProducers);
+    cp_async_commit();
+    cp_async_wait_all();
+  }
+  __syncthreads();
+  for (int j = 0; j < n_items; ++j) {
+    if (!producer) {
+      compute(cur, spare, item(j), tid, nc);
+    } else {
+      if (j > 0) {
+        tile(next, item(j - 1)).store(out, tid - nc, kProducers);
+        bar_sync_last(kProducers);
+      }
+      if (j + 1 < n_items) {
+        tile(next, item(j + 1)).issue(tid - nc, kProducers);
+        cp_async_commit();
+        cp_async_wait_all();
+      }
+    }
+    __syncthreads();          // `next` has landed; item j's result is done
+    float2* res = odd ? spare : cur;
+    float2* other = odd ? cur : spare;
+    cur = next;
+    spare = other;
+    next = res;
+  }
+  if (producer) tile(next, item(n_items - 1)).store(out, tid - nc, kProducers);
+}
+
+// Host: opt `kernel` in to smem bytes of shared memory and size its
+// persistent grid, the blocks the occupancy query fits on the card, at
+// most `units`. info receives the grid, blocks per SM, SMs and smem.
+template <class K>
+cudaError_t persistent_grid(K kernel, int block, size_t smem, long units,
+                            int* info) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0;
+  int sms = 0;
+  int per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                         block, smem);
+  }
+  if (err != cudaSuccess) return err;
+  long grid = (long)per_sm * sms;
+  if (grid > units) grid = units;
+  info[0] = (int)grid;
+  info[1] = per_sm;
+  info[2] = sms;
+  info[3] = (int)smem;
+  return grid < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+// Host: whether a tile plan (logc, consumer threads) is one the kernels
+// take on an axis of this plan: 1 to 8 lanes, whole consumer warps within
+// kMaxThreads with the producers, and a first stage in registers (the one
+// that takes the pass's product).
+bool plan_ok(const MixedPlan& pl, int logc, int threads) {
+  return logc >= 0 && logc <= 3 && threads >= 32 && threads % 32 == 0 &&
+         threads + kProducers <= kMaxThreads && pl.nf >= 1 && pl.f[0] <= 31;
 }
 
 }  // namespace

@@ -1,9 +1,10 @@
 // The per-tile work of the slice step, written once for both FFT engines
 // (Pow2Eng of fft_pow2.cuh, MixedEng of fft_mixed.cuh): row_tile, col_tile
-// and kconv_tile for the resident slice loop K6 (resident.cu),
-// pair_row_tile for the adjoint's backward row passes K7 and K8
-// (fused_step_adjoint*.cu). The persistent mixed-radix passes K4 and K5
-// (fused_step_odd.cu) have their own tiles (tile_async.cuh).
+// and kconv_tile for the resident slice loop K6 (resident.cu, both
+// engines), pair_row_tile for the adjoint's power-of-two backward row pass
+// K7 (fused_step_adjoint.cu, Pow2Eng). The persistent mixed-radix passes
+// K4 and K5 (fused_step_odd.cu) and K8 (fused_step_adjoint_odd.cu) have
+// their own tiles (tile_async.cuh).
 //
 // An engine E gives: E::n, the axis length; row(i), the slot row of
 // element i in a tile (s[(row(i) << logc) + c]); kslot(k), the element
@@ -151,8 +152,8 @@ __device__ void kconv_tile(const E& ex, float2* a, float2* b,
   }
 }
 
-// Pair row tile of the adjoint's backward row pass (K7 with Pow2Eng, K8
-// with MixedEng): rows x0 .. x0 + 2^logr - 1 of every pair of the
+// Pair row tile of the adjoint's backward row pass K7 (written for either
+// engine; K7 runs it with Pow2Eng, K8 has its own in tile_async.cuh): rows x0 .. x0 + 2^logr - 1 of every pair of the
 // (2 n_pairs, nx, ny) stream, whose rows 2p and 2p + 1 hold the pair's
 // members w0 = a and w1 = lambda (ny = ey.n). The tile's columns are
 // (row r, member c) at 2r + c. For p = 0 .. n_pairs - 1 in order: IFFT_y of

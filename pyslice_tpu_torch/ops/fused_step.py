@@ -159,7 +159,7 @@ _ARGTYPES = {
     "fs_col_pass_mr": "ppppiiiiipp",
     "fs_resident_loop": "ppppppppiiiiiiipp",
     "fs_row_pass_bwd": "ppppppiiiifp",
-    "fs_row_pass_bwd_mr": "ppppppiiiifp",
+    "fs_row_pass_bwd_mr": "ppppppiiiifiiipp",
 }
 
 

@@ -32,6 +32,12 @@ The conjugated planes are built physically (``torch.conj_physical``, or
 the negated phase -sigma*V): the kernels read ``data_ptr()``, and
 ``fused_step._check_cuda`` refuses lazily conjugated views.
 
+K8 runs on the persistent producer/consumer tiles of K4 and K5
+(``csrc/tile_async.cuh``): a block walks its row tiles, each through every
+pair in order, while its producer warps copy the next pair of the same
+rows; its tile plan is ``fused_step_odd.pair_tile_plan``, and
+``fused_step_odd.last_launch["k8"]`` holds its last plan and grid.
+
 Each wrapper takes its plain ``torch.fft`` version for a tensor on the CPU,
 and for a CUDA tensor launches its kernel or raises; ``launches["k7"]`` /
 ``launches["k8"]`` count the launches. ``fused_adjoint_chain[_odd]`` run
@@ -46,6 +52,8 @@ are their conjugates); ``vbar`` is the same in both.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .fused_step import (_check_cuda, _check_state, _into, _out_for,
@@ -53,8 +61,8 @@ from .fused_step import (_check_cuda, _check_state, _into, _out_for,
                          _transmission, _twiddles, build, col_pass,
                          fresnel_plane, launches, row_pass, supported_size,
                          transmission_stack)
-from .fused_step_odd import (MR_SIZES, col_pass_mr, row_pass_mr,
-                             supported_size_mr)
+from .fused_step_odd import (MR_SIZES, col_pass_mr, pair_tile_plan,
+                             record_launch, row_pass_mr, supported_size_mr)
 
 BWD_MODES = ("mid", "last")
 
@@ -104,16 +112,21 @@ def _row_pass_bwd(kernel: str, mode: str, state: torch.Tensor, t,
         raise ValueError("mid mode needs the transmission t")
     if state.device.type == "cpu":
         return _plain_row_pass_bwd(mode, state, t, sigma, out, vbar)
+    two_p, nx, ny = state.shape
     if kernel == "k7":
         _check_state(state)
         lib, fn, full = (build().libs["fused_step_adjoint"],
                          "fs_row_pass_bwd", False)
+        plan_args = ()
     else:
         _check_state(state, lambda n: supported_size_mr(n, state.shape[0]),
                      MR_SIZES)
         lib, fn, full = (build().libs["fused_step_adjoint_odd"],
                          "fs_row_pass_bwd_mr", True)
-    two_p, nx, ny = state.shape
+        plan = pair_tile_plan(ny, nx)
+        info = (ctypes.c_int * 4)()
+        plan_args = (plan.logc, plan.threads, int(plan.shared_table),
+                     ctypes.addressof(info))
     phase = False
     if mode == "mid":
         phase = not t.is_complex()
@@ -130,8 +143,10 @@ def _row_pass_bwd(kernel: str, mode: str, state: torch.Tensor, t,
             t.data_ptr() if mode == "mid" and not phase else None,
             t.data_ptr() if phase else None, vbar.data_ptr(),
             _twiddles(ny, state.device, full=full).data_ptr(), two_p // 2,
-            nx, ny, int(mode == "last"), -float(sigma),
+            nx, ny, int(mode == "last"), -float(sigma), *plan_args,
             torch.cuda.current_stream().cuda_stream)
+    if kernel == "k8":
+        record_launch("k8", plan, info)
     _raise_on(err, f"{fn} ({kernel.upper()})")
     launches[kernel] += 1
     return out, vbar

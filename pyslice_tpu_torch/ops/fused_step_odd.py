@@ -129,10 +129,10 @@ SMEM_MAX = 232448
 # 0.88; at 16 x 1018^2, prime 509, 14.3 against 0.80 and 19.6 against 1.18).
 KERNEL_MAX_RADIX = 31
 
-# The last launch of each kernel: the plan (lanes, threads, busy, tiles)
-# and the grid the occupancy query gave (grid, blocks_per_sm, sms,
-# smem_bytes).
-last_launch = {"k4": {}, "k5": {}}
+# The last launch of each kernel (K8's: ops.fused_step_adjoint): the plan
+# (lanes, threads, busy, tiles, table) and the grid the occupancy query
+# gave (grid, blocks_per_sm, sms, smem_bytes).
+last_launch = {"k4": {}, "k5": {}, "k8": {}}
 
 
 def stage_radices(n: int) -> list:
@@ -172,11 +172,16 @@ def kernel_preferred_mr(n: int) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
-    logc: int           # the tile is 2^logc lanes: columns (K5), rows (K4)
+    logc: int           # the tile is 2^logc lanes: columns (K5), rows (K4),
+                        # row r's pair members at 2r, 2r + 1 (K8)
     threads: int        # a block's consumer threads (and three producer warps)
-    smem_bytes: int     # TILE_BUFFERS tile buffers and the twiddle table
-    tiles: int          # (probe, tile) pairs
+    smem_bytes: int     # TILE_BUFFERS tile buffers, the twiddle table (K8:
+                        # where shared_table) and K8's vbar rows
+    tiles: int          # (probe, tile) pairs; K8: row tiles, each walked
+                        # through every pair
     busy: float         # share of the threads busy in the fewest-item stage
+    shared_table: bool = True   # the twiddle table in shared memory, else
+                                # device memory (K8 above n = 3874)
 
     @property
     def lanes(self) -> int:
@@ -187,6 +192,14 @@ def _tile_smem(n: int, logc: int) -> int:
     """The shared memory of K4 and K5: the tile buffers and the twiddle
     table."""
     return 8 * (TILE_BUFFERS * (n << logc) + n)
+
+
+def _busy(n: int, logc: int) -> float:
+    """The share of TILE_THREADS consumers busy in the stage with the
+    fewest items (a radix-R stage in registers has n/R items a lane, a
+    larger prime n)."""
+    items = min((n // r if r <= 31 else n) << logc for r in stage_radices(n))
+    return items / (TILE_THREADS * -(-items // TILE_THREADS))
 
 
 def tile_plan(n: int, n_probes: int, lanes: int) -> TilePlan:
@@ -201,18 +214,49 @@ def tile_plan(n: int, n_probes: int, lanes: int) -> TilePlan:
     logc = TILE_MAX_LOGC
     while logc > 0 and _tile_smem(n, logc) > SMEM_MAX:
         logc -= 1
-    items = min((n // r if r <= 31 else n) << logc for r in stage_radices(n))
-    busy = items / (TILE_THREADS * -(-items // TILE_THREADS))
     return TilePlan(logc=logc, threads=TILE_THREADS,
                     smem_bytes=_tile_smem(n, logc),
-                    tiles=n_probes * -(-lanes // (1 << logc)), busy=busy)
+                    tiles=n_probes * -(-lanes // (1 << logc)),
+                    busy=_busy(n, logc))
 
 
-def _record(kernel: str, plan: TilePlan, info) -> None:
+def _pair_smem(n: int, logc: int, shared_table: bool = True) -> int:
+    """The shared memory of K8 (csrc/fused_step_adjoint_odd.cu): the tile
+    buffers, the twiddle table where it sits there, and 2^(logc-1) vbar
+    rows of n float32."""
+    return (8 * (TILE_BUFFERS * (n << logc) + (n if shared_table else 0))
+            + 4 * (n << (logc - 1)))
+
+
+def pair_tile_plan(n: int, nx: int) -> TilePlan:
+    """K8's tile on pair rows of n (ny), nx rows a plane: 2^logc lanes,
+    row r's members (a, lambda) at lanes 2r and 2r + 1, so at least 2. The
+    widest, up to 2^TILE_MAX_LOGC lanes, whose TILE_BUFFERS buffers, n-entry
+    twiddle table and 2^(logc-1) vbar rows fit SMEM_MAX: 8 lanes (4 rows)
+    up to n = 1076 (220,968 bytes at 1023), 4 up to 2075, 2 up to 3874
+    (60 n bytes). Above that not even 2 lanes fit beside the table, and it
+    stays in device memory (``shared_table`` False; 52 n bytes, 212,992 at
+    4096). ``tiles`` counts row tiles, the units of the
+    persistent walk: a block takes each of its row tiles through every pair
+    in order."""
+    logc = TILE_MAX_LOGC
+    while logc > 1 and _pair_smem(n, logc) > SMEM_MAX:
+        logc -= 1
+    shared = _pair_smem(n, logc) <= SMEM_MAX
+    return TilePlan(logc=logc, threads=TILE_THREADS,
+                    smem_bytes=_pair_smem(n, logc, shared),
+                    tiles=-(-nx // (1 << (logc - 1))), busy=_busy(n, logc),
+                    shared_table=shared)
+
+
+def record_launch(kernel: str, plan: TilePlan, info) -> None:
+    """Keep a launch's plan and grid (``info``: grid, blocks per SM, SMs,
+    shared memory bytes) in ``last_launch[kernel]``."""
     rec = last_launch[kernel]
     rec.clear()
     rec.update(lanes=plan.lanes, threads=plan.threads, busy=plan.busy,
-               tiles=plan.tiles)
+               tiles=plan.tiles,
+               table="shared" if plan.shared_table else "device")
     rec.update(zip(("grid", "blocks_per_sm", "sms", "smem_bytes"), info))
 
 
@@ -245,7 +289,7 @@ def row_pass_mr(mode: str, state: torch.Tensor, t: torch.Tensor,
             _twiddles(ny, state.device, full=True).data_ptr(), n_probes, nx,
             ny, ROW_MODES[mode], plan.logc, plan.threads,
             ctypes.addressof(info), torch.cuda.current_stream().cuda_stream)
-    _record("k4", plan, info)
+    record_launch("k4", plan, info)
     _raise_on(err, "row_pass_mr (K4)")
     launches["k4"] += 1
     return out
@@ -272,7 +316,7 @@ def col_pass_mr(state: torch.Tensor, prop: torch.Tensor,
             _twiddles(nx, state.device, full=True).data_ptr(), n_probes, nx,
             ny, plan.logc, plan.threads, ctypes.addressof(info),
             torch.cuda.current_stream().cuda_stream)
-    _record("k5", plan, info)
+    record_launch("k5", plan, info)
     _raise_on(err, "col_pass_mr (K5)")
     launches["k5"] += 1
     return out

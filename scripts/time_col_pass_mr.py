@@ -6,8 +6,8 @@ resident slice loop ``resident_loop``) and K8 (the adjoint's backward row
 pass ``row_pass_mr_bwd``).
 
     python3 scripts/time_col_pass_mr.py [--root DIR] [--kernels k4 k5 k6 k8]
-        [--mode mid] [--shapes 16x1023 32x1023] [--plain] [--shift]
-        [--nz 14] [--reps 20] [--rounds 5]
+        [--mode mid] [--phase] [--shapes 16x1023 32x1023] [--plain]
+        [--shift] [--nz 14] [--reps 20] [--rounds 5]
 
 --root is the checkout whose package is imported and built (by default the
 one around this script). Each kernel runs through that checkout's own
@@ -16,12 +16,15 @@ with another commit, unpack it into a git-ignored directory
 (``git archive <commit> | tar -x -C build/parent``) and run the script on
 each root in turn: parent, this, this, parent.
 
-A shape PxN is P planes of N^2 for K4 and K5 (in place in ``mid`` mode;
-K4's other modes write a second buffer), P probes of N^2 through --nz
-slices for K6, and P pairs (2P planes) of N^2 for K8 in ``mid`` mode.
---mode is K4's mode. --plain times the plain version too, in the same
-rounds (the order reversed every other round), for the routing rule of
-``fused_step_odd.kernel_preferred_mr``. --shift places the wave one
+A shape PxN is P planes of N^2 for K4 and K5, P probes of N^2 through
+--nz slices for K6, and P pairs (2P planes) of N^2 for K8. --mode is K4's
+mode and K8's (``mid`` or ``last``); in ``mid`` mode K4 and K8 run in
+place, in the others they write a second buffer. --phase hands K4 and K8
+the transmission as the float32 phase sigma*V (cos/sin taken in the
+kernel) instead of the complex plane. --plain times the plain version
+too, in the same rounds (the order reversed every other round), for the
+routing rule of ``fused_step_odd.kernel_preferred_mr``. --shift places
+the wave one
 complex64 element (8 bytes) past a 16-byte boundary (K5's 8-byte copy
 path on an even N). Each timing is --rounds rounds of --reps launches
 (CUDA events), and the median round is reported. Prints a line per
@@ -45,7 +48,7 @@ def errors(got, want):
     return rel, (((f - r) ** 2).sum() / (r ** 2).sum()).item()
 
 
-def case(kernel, mode, P, n, nz, shift, dev, g):
+def case(kernel, mode, phase_t, P, n, nz, shift, dev, g):
     """(run the kernel, run the plain version, [(got, want, vbar?)...]) of
     one kernel at one shape: the checks compare a kernel call that writes
     a new buffer with its plain version on the same inputs."""
@@ -61,12 +64,13 @@ def case(kernel, mode, P, n, nz, shift, dev, g):
                           generator=g))
     phase = torch.rand((n, n), device=dev, generator=g) * (2 * math.pi)
     plane = torch.polar(torch.ones_like(phase), phase)
+    t = phase if phase_t else plane
+    out = psi if mode == "mid" else torch.empty_like(psi)
     if kernel == "k4":
-        out = psi if mode == "mid" else torch.empty_like(psi)
-        return (lambda: fo.row_pass_mr(mode, psi, plane, out=out),
-                lambda: fs._plain_row_pass(mode, psi, plane),
-                [(fo.row_pass_mr(mode, psi, plane),
-                  fs._plain_row_pass(mode, psi, plane), False)])
+        return (lambda: fo.row_pass_mr(mode, psi, t, out=out),
+                lambda: fs._plain_row_pass(mode, psi, t),
+                [(fo.row_pass_mr(mode, psi, t),
+                  fs._plain_row_pass(mode, psi, t), False)])
     if kernel == "k5":
         return (lambda: fo.col_pass_mr(psi, plane, out=psi),
                 lambda: fs._plain_col_pass(psi, plane),
@@ -82,12 +86,15 @@ def case(kernel, mode, P, n, nz, shift, dev, g):
                   fr._plain_resident_loop(psi, t, plane), False)])
     from pyslice_tpu_torch.ops import fused_step_adjoint as fa
     sigma = interaction_parameter(100e3)
+    if mode not in fa.BWD_MODES:
+        raise SystemExit(f"K8 takes --mode {' or '.join(fa.BWD_MODES)}")
+    t = None if mode == "last" else t
     vb = torch.empty((n, n), device=dev)
-    got = fa.row_pass_mr_bwd("mid", psi, plane, sigma)
-    want = fa._plain_row_pass_bwd("mid", psi, plane, sigma)
-    return (lambda: fa.row_pass_mr_bwd("mid", psi, plane, sigma, out=psi,
+    got = fa.row_pass_mr_bwd(mode, psi, t, sigma)
+    want = fa._plain_row_pass_bwd(mode, psi, t, sigma)
+    return (lambda: fa.row_pass_mr_bwd(mode, psi, t, sigma, out=out,
                                        vbar=vb),
-            lambda: fa._plain_row_pass_bwd("mid", psi, plane, sigma),
+            lambda: fa._plain_row_pass_bwd(mode, psi, t, sigma),
             [(got[0], want[0], False), (got[1], want[1], True)])
 
 
@@ -122,6 +129,7 @@ def main():
     ap.add_argument("--mode", default="mid",
                     choices=["first", "mid", "last", "only"])
     ap.add_argument("--shapes", nargs="+", default=["16x1023", "32x1023"])
+    ap.add_argument("--phase", action="store_true")
     ap.add_argument("--plain", action="store_true")
     ap.add_argument("--shift", action="store_true")
     ap.add_argument("--nz", type=int, default=14)
@@ -145,13 +153,13 @@ def main():
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     result = {"root": str(root), "card": card, "shift": args.shift,
-              "mode": args.mode, "nz": args.nz}
+              "mode": args.mode, "phase": args.phase, "nz": args.nz}
     for kernel in args.kernels:
         result[kernel] = {}
         for spec in args.shapes:
             P, n = (int(x) for x in spec.split("x"))
-            run, plain, checks = case(kernel, args.mode, P, n, args.nz,
-                                      args.shift, dev, g)
+            run, plain, checks = case(kernel, args.mode, args.phase, P, n,
+                                      args.nz, args.shift, dev, g)
             torch.cuda.synchronize()
             errs = []
             for got, want, rel_only in checks:
@@ -173,8 +181,10 @@ def main():
             plan = dict(getattr(fo, "last_launch", {}).get(kernel, {}))
             entry = {"ms": ms, "rounds_ms": ts, "max_rel": errs[0][0],
                      "residual": errs[0][1], "plan": plan}
-            line = (f"{kernel} {args.mode if kernel == 'k4' else ''} at "
-                    f"{spec}^2{' shifted' if args.shift else ''}: {ms:.4f} ms")
+            form = (f"{args.mode}{' phase' if args.phase else ''} "
+                    if kernel in ("k4", "k8") else "")
+            line = (f"{kernel} {form}at {spec}^2"
+                    f"{' shifted' if args.shift else ''}: {ms:.4f} ms")
             if rest:
                 entry["plain_ms"], entry["plain_rounds_ms"] = rest[0]
                 line += f", plain {entry['plain_ms']:.4f} ms"

@@ -281,6 +281,8 @@ def _check_bwd(dev, row_bwd, key, P, nx, ny, mode, phase):
     got = row_bwd(mode, state, t, SIGMA)
     assert fs.launches[key] == n0 + 1
     _bwd_ok(got, fa._plain_row_pass_bwd(mode, state, t, SIGMA))
+    if key == "k8":
+        _grid_ok(fo.last_launch["k8"])
     buf = state.clone()
     vb = torch.empty((nx, ny), device=dev)
     out = row_bwd(mode, buf, t, SIGMA, out=buf, vbar=vb)     # in place
@@ -306,6 +308,42 @@ def test_row_pass_bwd_matches_plain(dev, shape, P, mode, phase):
 def test_row_pass_mr_bwd_matches_plain(dev, n, P, mode, phase):
     _check_bwd(dev, fa.row_pass_mr_bwd, "k8", P, 387 if n != 387 else 258,
                n, mode, phase)
+
+
+# K8 on nx = 1023 rows: a ragged last row tile at 8 lanes (ny 1023: 1023 =
+# 255 * 4 + 3 rows) and at 4 (1152: 511 * 2 + 1); 2 lanes at 2304, and at
+# 3968 with the twiddle table in device memory (fused_step_odd
+# pair_tile_plan). P = 3: a pair count that is no power of two.
+K8_NY = [1023, 1152, 2304, 3968]
+
+
+@pytest.mark.parametrize("ny", K8_NY)
+@pytest.mark.parametrize("P", [1, 3, 16])
+@pytest.mark.parametrize("mode,phase", [("mid", False), ("mid", True),
+                                        ("last", False)])
+def test_row_pass_mr_bwd_1023_rows_matches_plain(dev, ny, P, mode, phase):
+    _check_bwd(dev, fa.row_pass_mr_bwd, "k8", P, 1023, ny, mode, phase)
+    plan = fo.last_launch["k8"]
+    assert plan["lanes"] == {1023: 8, 1152: 4}.get(ny, 2)
+    assert plan["table"] == ("device" if ny == 3968 else "shared")
+
+
+@pytest.mark.parametrize("ny", K8_NY)
+@pytest.mark.parametrize("mode,phase", [("mid", False), ("mid", True),
+                                        ("last", False)])
+def test_row_pass_mr_bwd_is_bit_identical(dev, ny, mode, phase):
+    """Two launches of K8 on the same inputs give the same bits, the pair
+    stream and vbar: the sum over pairs is taken in pair order, without
+    atomics."""
+    state = _wave(dev, 2 * 16, 1023, ny)
+    sv = _phase(dev, 1023, ny)
+    t = None if mode == "last" else (
+        sv if phase else torch.complex(torch.cos(sv), torch.sin(sv)))
+    first = fa.row_pass_mr_bwd(mode, state, t, SIGMA)
+    second = fa.row_pass_mr_bwd(mode, state, t, SIGMA)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
 
 
 @pytest.mark.parametrize("kind,n", [("aligned", 512), ("odd", 387),

@@ -211,3 +211,85 @@ def test_kernel_preferred_mr(n, radix):
     assert max(todd.stage_radices(n)) == radix
     assert todd.kernel_preferred_mr(n) == (radix <= todd.KERNEL_MAX_RADIX)
     assert todd.KERNEL_MAX_RADIX == 31
+
+
+# --- K8's pair tile plan (the adjoint's backward row pass) --------------------
+
+
+def _walk(n_units, per, grid):
+    """The items of each block of the persistent walk of
+    csrc/tile_async.cuh ``persistent_tiles``: units b + k grid, each
+    unit's ``per`` items v = u per + s in order."""
+    blocks = []
+    for b in range(grid):
+        n_items = per * ((n_units - 1 - b) // grid + 1)
+        blocks.append([(b + (j // per) * grid) * per + j % per
+                       for j in range(n_items)])
+    return blocks
+
+
+def _check_pair_plan(plan, n, nx, n_pairs=3):
+    """K8's plan: an even lane count (a row's two pair members), the
+    widest up to 8 lanes whose buffers, table and vbar rows fit, the table
+    in device memory only where not even 2 lanes fit beside it, and a walk
+    that takes every (pair, row) exactly once, each row tile through its
+    pairs in order."""
+    assert plan.lanes in (2, 4, 8)
+    table = n if plan.shared_table else 0
+    assert plan.smem_bytes == (8 * (3 * n * plan.lanes + table)
+                               + 4 * n * plan.lanes // 2) <= todd.SMEM_MAX
+    assert plan.shared_table == (n <= 3874)
+    wider = 8 * (3 * n * 2 * plan.lanes + n) + 4 * n * plan.lanes
+    assert plan.lanes == 8 or wider > todd.SMEM_MAX
+    assert plan.lanes == (8 if n <= 1076 else 4 if n <= 2075 else 2)
+    assert plan.threads == todd.TILE_THREADS
+    rows = plan.lanes // 2
+    assert plan.tiles == -(-nx // rows)
+    for grid in sorted({1, min(7, plan.tiles), plan.tiles}):
+        seen = np.zeros((n_pairs, nx), int)
+        for items in _walk(plan.tiles, n_pairs, grid):
+            for j, v in enumerate(items):
+                assert v % n_pairs == j % n_pairs       # pairs in order
+                x0 = (v // n_pairs) * rows
+                seen[v % n_pairs, x0:min(x0 + rows, nx)] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n", PLAN_SIZES)
+def test_pair_tile_plan(n):
+    """K8's plan (``pair_tile_plan``) on rows of n for n and 1023 rows (a
+    ragged last row tile: 1023 = 255 * 4 + 3 = 511 * 2 + 1): 8 lanes (4
+    rows) and 220,968 bytes at 1023, the table in device memory at 3968
+    and 4096."""
+    for nx in (n, 1023):
+        plan = todd.pair_tile_plan(n, nx)
+        _check_pair_plan(plan, n, nx)
+        if n == 1023:
+            assert (plan.lanes, plan.smem_bytes, plan.tiles) == (8, 220968,
+                                                                  256)
+            assert plan.busy >= 0.9
+        assert plan.shared_table == (n < 3968)
+
+
+def test_pair_tile_plan_every_kernel_size():
+    """Every axis up to 4096 that dispatch gives K8 (``supported_size_mr``
+    and ``kernel_preferred_mr``) has a plan that fits."""
+    sizes = [n for n in range(2, 4097)
+             if todd.supported_size_mr(n, 16) and todd.kernel_preferred_mr(n)]
+    assert 1023 in sizes and 3968 in sizes and 4096 in sizes
+    for n in sizes:
+        plan = todd.pair_tile_plan(n, 387)
+        assert plan.lanes % 2 == 0 and plan.smem_bytes <= todd.SMEM_MAX
+        assert plan.shared_table == (n <= 3874)
+
+
+@pytest.mark.parametrize("n_units,per,grid", [(256, 16, 132), (7, 3, 3),
+                                              (2048, 1, 132), (5, 1, 5)])
+def test_persistent_walk_covers_every_item_once(n_units, per, grid):
+    """The shared walk: each item of every unit once; with per = 1 (K4,
+    K5) block b takes b, b + grid, ... as before."""
+    blocks = _walk(n_units, per, grid)
+    assert sorted(v for items in blocks for v in items) == list(
+        range(n_units * per))
+    if per == 1:
+        assert blocks == [list(range(b, n_units, grid)) for b in range(grid)]
