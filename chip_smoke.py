@@ -10,7 +10,8 @@ Phases, each printing one line (or a few) and failing hard:
 3. kernels A (every mode), B and C against their plain torch.fft versions
    at 16 probes x 1024^2 complex64, plus one depth-recording chain:
    max|d|/max|ref| <= 1e-4 and the magnitude residual
-   sum((|F|-|D|)^2)/sum(|F|^2) <= 1e-6;
+   sum((|F|-|D|)^2)/sum(|F|^2) <= 1e-6; A and B each with its tile plan
+   and persistent grid, B also at 32 planes (the adjoint's pair stream);
 4. the mixed-radix kernels the same way: K4 (every mode) and K5 at
    16 x 1023^2, each with its tile plan and persistent grid (K5 also at
    32 planes, the adjoint's pair stream), K6 (the resident slice loop) at
@@ -237,9 +238,31 @@ def kernel_phase(dev, P=N_PROBES, n=N_GRID, nz=N_SLICES):
         "c": (cuda_ms(lambda: fs.kconvert(buf)),
               cuda_ms(lambda: fs._plain_kconvert(buf))),
     }
+    plans = {k: dict(fs.last_launch[k]) for k in ("a", "b")}
+    for k, plan in plans.items():
+        print(f"    {k.upper()} tile plan and persistent grid at {P}x{n}^2: "
+              f"{plan}")
+    del buf
+    # B on 2P planes: the adjoint chain's pair stream
+    buf = torch.randn((2 * P, n, n), dtype=torch.complex64, device=dev,
+                      generator=g)
+    errs["b"] = max(errs["b"], check(
+        f"B {2 * P} planes", fs.col_pass(buf, prop),
+        fs._plain_col_pass(buf, prop)))
+    b_pairs = {"ms": cuda_ms(lambda: fs.col_pass(buf, prop, out=buf)),
+               "plain_ms": cuda_ms(lambda: fs._plain_col_pass(buf, prop)),
+               "bound_ms": kernel_bound("pass", 2 * P, n)["bound_ms"]}
+    print(f"  B at {2 * P}x{n}^2: {b_pairs['ms']:.4f} ms, plain "
+          f"{b_pairs['plain_ms']:.4f} ms, bound {b_pairs['bound_ms']:.4f} "
+          f"ms; plan and grid {fs.last_launch['b']}")
+    del buf
     bounds = {"a": kernel_bound("pass", P, n), "b": kernel_bound("pass", P, n),
               "c": kernel_bound("kconvert", P, n)}
-    return records_for(errs, timings, bounds, f"{P}x{n}^2")
+    records = records_for(errs, timings, bounds, f"{P}x{n}^2")
+    records["b"][f"at_{2 * P}_planes"] = b_pairs
+    for k, plan in plans.items():
+        records[k]["plan"] = plan
+    return records
 
 
 def records_for(errs, timings, bounds, shape):

@@ -1,5 +1,8 @@
-// The power-of-two FFT engine in shared memory, shared by the kernels of
-// fused_step.cu (A, B, C) and by the resident slice loop (resident.cu).
+// The power-of-two FFT engine in shared memory: kernel C (fused_step.cu),
+// the resident slice loop's radix-16 instantiation K6 (resident.cu) and
+// the adjoint's backward row pass K7 (fused_step_adjoint.cu, through
+// tiles.cuh). A and B keep their transforms in registers (fft_regs.cuh)
+// and take only this header's complex helpers and row modes.
 //
 // Each 1-D transform is an in-place FFT in shared memory, run as passes of
 // up to four radix-2 stages held in registers (radix 16: a 1024-point
@@ -99,8 +102,9 @@ __device__ __forceinline__ void fft_pass(float2* s, int logn, int logc,
 }
 
 // Radix 16 (a 1024-point transform is three passes). Measured on an H100
-// at 16 x 1024^2, radix 16 beat radix 8 and radix 32 for A + B: radix 32
-// needs ~160 registers a thread, which leaves one column block per SM.
+// at 16 x 1024^2, radix 16 beat radix 8 and radix 32 for the first A + B,
+// which ran this engine: radix 32 needs ~160 registers a thread, which
+// leaves one column block per SM.
 constexpr int kMaxLogRadix = 4;
 
 // fft_pass<lr> for a run-time lr <= LRMAX; only radices up to LRMAX are

@@ -6,21 +6,34 @@
 //   C  k conversion <- _kernel_c via _call_c  (pallas_call at fused_step.py:423)
 //
 // Layout: the wave is (P, nx, ny) complex64, interleaved (float2), in its
-// natural order at every kernel boundary. The FFT engine (fft_pow2.cuh)
-// runs radix-16 passes in shared memory: the forward leaves bit-reversed
-// order and the inverse consumes it. The bit reversal costs no data movement:
-// A reads or writes its row through bit-reversed shared-memory addresses,
-// B multiplies the Fresnel plane at the bit-reversed kx row between its
-// forward and inverse, and C folds both the bit reversal and the fftshift
-// into its store index. Twiddles exp(-2 pi i m / n), m < n/2, are computed
-// in float64 on the host and read as float32 from device memory.
+// natural order at every kernel boundary.
 //
-// What bounds them on an H100 (reckoned from the data sheet, not measured):
-// one slice at 16 x 1024^2 reads and writes the 128 MiB wave twice (A and
-// B) plus the transmission and Fresnel planes, about 0.55 GB, or about
-// 0.17 ms at 3.35 TB/s; its FFT work is about 3.4 GFLOP, under 0.1 ms on the
-// FP32 cores. The step is memory-bound, so each kernel reads and writes the
-// wave once and keeps every intermediate in shared memory or registers.
+// What bounds A and B on an H100: a pass at 16 x 1024^2 reads and writes
+// the 128 MiB wave once and reads one 8 MiB plane, 276.8 MB, 0.0826 ms at
+// 3.35 TB/s (data sheet); its FFT work, 1.7 GFLOP, is 0.025 ms on the FP32
+// cores. The first kernels (one block a tile, its values loaded into
+// shared memory, radix-16 passes there with a barrier and a device-memory
+// twiddle for every butterfly, then stored) took 0.23 (A mid) and 0.26 ms
+// (B); so did the producer/consumer tile walk of K4 and K5 on these axes,
+// and a walk whose first and last stages read and wrote the wave: every
+// one of them spends its time in shared-memory stages and the barriers
+// between them, with few warps an SM to hide them (PERF.md).
+//
+// A and B run the register-resident engine of fft_regs.cuh instead:
+// persistent blocks walk the (probe, tile) pairs; each thread loads its 32
+// values of a transform straight from the wave, and they stay in its
+// registers through every stage, the pass's product and (B, A mid) the
+// second transform, until it stores them. A 1024-point transform is two
+// radix-32 stages with one exchange through shared memory between them;
+// B and A mid take two exchanges, first and last one, only none. The
+// product is taken on the values in registers, in natural order, so the
+// Fresnel plane and the transmission are read at their natural elements
+// with the same coalesced pattern as the wave.
+//
+// C keeps the in-place radix-16 engine of fft_pow2.cuh: the forward leaves
+// bit-reversed order, which C folds with the fftshift into its store
+// index. Twiddles exp(-2 pi i m / n), m < n/2, are computed in float64 on
+// the host.
 //
 // No fast-math: the transmission phase sigma*V runs to tens of radians,
 // where __sinf/__cosf lose the accuracy the 1e-6 residual bar needs, so the
@@ -29,103 +42,178 @@
 // Plain C interface for ctypes: each function launches on the given stream
 // and returns cudaGetLastError() as an int.
 
-#include "fft_pow2.cuh"
+#include "fft_regs.cuh"
 
 namespace {
 
-// Kernel A, the row pass; replaces _kernel_a (pyslice_tpu/ops/fused_step.py,
-// launched by _call_a). Floor at 16 x 1024^2: 264 MB moved (wave in and
-// out, t plane), ~0.08 ms at 3.35 TB/s. Block (tx, ty) threads; row
-// x = blockIdx.x * ty + threadIdx.y of probe blockIdx.y, n = 2^logn values,
-// lives in shared memory. Modes (as in the TPU kernel):
-//   first: x t, FFT_y      mid: IFFT_y, x t, FFT_y
-//   last:  IFFT_y, x t     only: x t
-// t is a precomputed (cos, sin) plane, or, when t == nullptr, the phase
-// sigma*V from which cos/sin are taken here (the capacity mode). `out` may
-// equal `in`: a block reads its rows whole before it writes.
-__global__ void row_pass_kernel(float2* out, const float2* in,
-                                const float2* __restrict__ t,
-                                const float* __restrict__ sv,
-                                const float2* __restrict__ tw,
-                                int nx, int logn, int mode) {
-  extern __shared__ float2 smem[];
-  const int n = 1 << logn;
-  const int tx = threadIdx.x;
-  const int ntx = blockDim.x;
-  float2* s = smem + threadIdx.y * pad(n);
-  const int x = blockIdx.x * blockDim.y + threadIdx.y;
-  const size_t row = ((size_t)blockIdx.y * nx + x) << logn;
-  const size_t trow = (size_t)x << logn;
-  const bool inv = (mode == kMid || mode == kLast);
-  const bool fwd = (mode == kFirst || mode == kMid);
-
-  for (int i = tx; i < n; i += ntx) {
-    s[pad(inv ? bit_reverse(i, logn) : i)] = in[row + i];
-  }
-  __syncthreads();
-  if (inv) ifft_dit(s, logn, 0, tw, tx, ntx);
-
-  const float scale = inv ? 1.0f / (float)n : 1.0f;
-  for (int i = tx; i < n; i += ntx) {
-    float2 tv;
-    if (t != nullptr) {
-      tv = t[trow + i];
-    } else {
-      sincosf(sv[trow + i], &tv.y, &tv.x);
+// v[m] *= f[m stride] * scale for the thread's values, f its factors: the
+// complex plane in device memory from the thread's first element
+// (kGlobal), or its own slots in shared memory. kU factors are loaded
+// before any is used, with no select on a loaded value.
+template <bool kGlobal>
+__device__ __forceinline__ void mul_plane(float2 (&v)[kRegE],
+                                          const float2* __restrict__ f,
+                                          int stride, float scale) {
+  constexpr int kU = 4;
+#pragma unroll
+  for (int m0 = 0; m0 < kRegE; m0 += kU) {
+    float2 q[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int k = (m0 + u) * stride;
+      q[u] = kGlobal ? __ldg(&f[k]) : f[k];
     }
-    const float2 v = cscale(cmul(s[pad(i)], tv), scale);
-    if (fwd) {
-      s[pad(i)] = v;
-    } else {
-      out[row + i] = v;
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      v[m0 + u] = cscale(cmul(v[m0 + u], q[u]), scale);
     }
-  }
-  if (!fwd) return;
-  __syncthreads();
-  fft_dif(s, logn, 0, tw, tx, ntx);
-  for (int i = tx; i < n; i += ntx) {
-    out[row + i] = s[pad(bit_reverse(i, logn))];
   }
 }
 
-// Kernel B, the column pass; replaces _kernel_b (launched by _call_b).
-// Floor as A's. FFT_x, x Fresnel plane / nx, IFFT_x. One block
-// per (tile of 2^logc adjacent columns, probe); the (nx, 2^logc) tile lives
-// in shared memory, so each row's columns load and store as one coalesced
-// segment. `prop` is the natural-order (nx, ny) plane; after the forward,
-// tile row i holds kx = bitrev(i), so the multiply reads prop's row
-// bitrev(i). `out` may equal `in`.
-__global__ void col_pass_kernel(float2* out, const float2* in,
-                                const float2* __restrict__ prop,
-                                const float2* __restrict__ tw,
-                                int logn, int ny, int logc) {
-  extern __shared__ float2 s[];
-  const int cmask = (1 << logc) - 1;
-  const int tot = 1 << (logn + logc);
-  const int y0 = blockIdx.x << logc;
-  const size_t base = ((size_t)blockIdx.y << logn) * ny + y0;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
+// A's launch bound in its transform modes, threads and blocks an SM (168
+// registers a thread: no spills with either t form); `only` takes
+// kRegThreads, one block, and the registers it needs.
+constexpr int kRowThreads = 128;
+constexpr int kRowBlocks = 3;
+constexpr int kColPassThreads = 512;   // B's block
 
-  for (int e = tid; e < tot; e += nthr) {
-    s[(pad(e >> logc) << logc) + (e & cmask)] =
-        in[base + (size_t)(e >> logc) * ny + (e & cmask)];
+// Kernel A, the row pass; replaces _kernel_a (pyslice_tpu/ops/fused_step.py,
+// launched by _call_a). Tile u is rows (u % tpp) << logc .. of probe
+// u / tpp; thread tid takes element t + T m of row c, t = tid mod T,
+// c = tid / T (T = ny / 32 threads a row). Modes as in the TPU kernel:
+//   first: x t, FFT_y      mid: IFFT_y, x t / ny, FFT_y
+//   last:  IFFT_y, x t / ny only: x t
+// t is the (nx, ny) complex plane or, with kPhase, sv the phase sigma*V
+// (cos/sin taken here: the capacity mode and TPU kernel #1,
+// transmit_pallas, as `only`). One instantiation a mode: `only` (no
+// transform, no shared memory) loads, multiplies and stores kU values at a
+// time, in few registers, so that many of its blocks share an SM and hide
+// sincosf. In the transform modes the phase's cos/sin are taken at the
+// start of each tile, before the thread loads its values, with few
+// registers live, and kept in the thread's own slots of shared memory
+// (after the tile buffer) until the product reads them back. `out`
+// may equal `in`: a tile is read whole before any of it is written
+// (`only`: each value is read before it is written, by the thread that
+// writes it).
+template <bool kPhase, int kMode>
+__global__ void __launch_bounds__(kMode == kOnly ? kRegThreads : kRowThreads,
+                                  kMode == kOnly ? 1 : kRowBlocks)
+row_pass_kernel(float2* out, const float2* in, const float2* __restrict__ tp,
+                const float* __restrict__ sv, RegGeo g, int nx, int logc,
+                int tpp, int n_tiles) {
+  extern __shared__ __align__(16) float2 xs[];
+  constexpr bool kInv = kMode == kMid || kMode == kLast;
+  constexpr bool kFwd = kMode == kFirst || kMode == kMid;
+  const int n = g.n;
+  const int T = g.T;
+  const int t = threadIdx.x & (T - 1);
+  const int c = threadIdx.x / T;
+  const int rowslots = n + (n >> 5);
+  const XMap xm{1, c * rowslots};
+  const float scale = kInv ? 1.0f / (float)n : 1.0f;
+  for (int u = blockIdx.x; u < n_tiles; u += gridDim.x) {
+    const int x = ((u % tpp) << logc) + c;
+    const size_t row = ((size_t)(u / tpp) * nx + x) * n + t;
+    const float2* tx = kPhase ? nullptr : tp + ((size_t)x * n + t);
+    const float* sx = kPhase ? sv + ((size_t)x * n + t) : nullptr;
+    if constexpr (kMode == kOnly) {
+      constexpr int kU = 8;
+#pragma unroll 1
+      for (int m0 = 0; m0 < kRegE; m0 += kU) {
+        float2 v[kU];
+#pragma unroll
+        for (int m = 0; m < kU; ++m) v[m] = in[row + (m0 + m) * T];
+        float2 f[kU];
+#pragma unroll
+        for (int m = 0; m < kU; ++m) {
+          const int k = (m0 + m) * T;
+          if constexpr (kPhase) {
+            f[m].x = __ldg(&sx[k]);
+          } else {
+            f[m] = __ldg(&tx[k]);
+          }
+        }
+        if constexpr (kPhase) {
+#pragma unroll
+          for (int m = 0; m < kU; ++m) sincosf(f[m].x, &f[m].y, &f[m].x);
+        }
+#pragma unroll
+        for (int m = 0; m < kU; ++m) {
+          out[row + (m0 + m) * T] = cmul(v[m], f[m]);
+        }
+      }
+    } else {
+      float2* slots = xs + (rowslots << logc) + threadIdx.x;
+      if constexpr (kPhase) {
+        // every phase loaded before the first sincosf, whose branch would
+        // otherwise hold each load back behind the one before
+        float ph[kRegE];
+#pragma unroll
+        for (int m = 0; m < kRegE; ++m) ph[m] = __ldg(&sx[m * T]);
+#pragma unroll
+        for (int m = 0; m < kRegE; ++m) {
+          float2 f;
+          sincosf(ph[m], &f.y, &f.x);
+          slots[m * blockDim.x] = f;
+        }
+      }
+      float2 v[kRegE];
+#pragma unroll
+      for (int m = 0; m < kRegE; ++m) v[m] = in[row + m * T];
+      if constexpr (kInv) reg_fft<true>(v, g, xs, xm, t);
+      if constexpr (kPhase) {
+        mul_plane<false>(v, slots, blockDim.x, scale);
+      } else {
+        mul_plane<true>(v, tx, T, scale);
+      }
+      if constexpr (kFwd) reg_fft<false>(v, g, xs, xm, t);
+#pragma unroll
+      for (int m = 0; m < kRegE; ++m) out[row + m * T] = v[m];
+    }
   }
-  __syncthreads();
-  fft_dif(s, logn, logc, tw, tid, nthr);
-  const float scale = 1.0f / (float)(1 << logn);
-  for (int e = tid; e < tot; e += nthr) {
-    const int i = e >> logc;
-    const int kx = bit_reverse(i, logn);
-    const float2 pv = prop[(size_t)kx * ny + y0 + (e & cmask)];
-    const int si = (pad(i) << logc) + (e & cmask);
-    s[si] = cmul(s[si], cscale(pv, scale));
-  }
-  __syncthreads();
-  ifft_dit(s, logn, logc, tw, tid, nthr);
-  for (int e = tid; e < tot; e += nthr) {
-    out[base + (size_t)(e >> logc) * ny + (e & cmask)] =
-        s[(pad(e >> logc) << logc) + (e & cmask)];
+}
+
+template <bool kPhase>
+auto row_kernel(int mode) {
+  return mode == kFirst  ? row_pass_kernel<kPhase, kFirst>
+         : mode == kMid  ? row_pass_kernel<kPhase, kMid>
+         : mode == kLast ? row_pass_kernel<kPhase, kLast>
+                         : row_pass_kernel<kPhase, kOnly>;
+}
+
+// Kernel B, the column pass; replaces _kernel_b (launched by _call_b).
+// Tile u is columns (u % tpp) << logc .. of probe u / tpp; thread tid
+// takes element (row) t + T m of column c, c = tid mod 2^logc,
+// t = tid >> logc, so a warp's loads are 32 / 2^logc row segments of the
+// tile's 2^logc columns. FFT_x, x prop / nx (prop the natural-order
+// Fresnel plane, read at the thread's own rows), IFFT_x, the values in
+// registers throughout. `out` may equal `in`. Bound: kColPassThreads, one
+// block an SM (128 registers); the tile as wide as they allow (nx = 4096:
+// 4 columns, 1024: 16), since the blocks running at once share the
+// sectors and DRAM bursts of their row segments only through L2, and
+// narrower tiles measured slower (PERF.md).
+__global__ void __launch_bounds__(kColPassThreads, 1)
+col_pass_kernel(float2* out, const float2* in,
+                const float2* __restrict__ prop, RegGeo g, int ny, int logc,
+                int tpp, int n_tiles) {
+  extern __shared__ __align__(16) float2 xs[];
+  const int n = g.n;
+  const int c = threadIdx.x & ((1 << logc) - 1);
+  const int t = threadIdx.x >> logc;
+  const XMap xm{1 << logc, c};
+  const float scale = 1.0f / (float)n;
+  const int step = g.T * ny;    // below 2^31 / 32: n ny <= 4096^2
+  for (int u = blockIdx.x; u < n_tiles; u += gridDim.x) {
+    const int y = ((u % tpp) << logc) + c;
+    const size_t col = (size_t)(u / tpp) * n * ny + (size_t)t * ny + y;
+    float2 v[kRegE];
+#pragma unroll
+    for (int m = 0; m < kRegE; ++m) v[m] = in[col + m * step];
+    reg_fft<false>(v, g, xs, xm, t);
+    mul_plane<true>(v, prop + (size_t)t * ny + y, step, scale);
+    reg_fft<true>(v, g, xs, xm, t);
+#pragma unroll
+    for (int m = 0; m < kRegE; ++m) out[col + m * step] = v[m];
   }
 }
 
@@ -164,12 +252,11 @@ __global__ void kconvert_kernel(float2* __restrict__ out,
 }
 
 constexpr int kColThreads = 256;
-constexpr int kRowThreads = 128;
-// Shared memory the column kernels may ask for (above the 48 KB default):
-// a 64 KB tile plus its pad slots.
+// Shared memory kernel C may ask for (above the 48 KB default): a 64 KB
+// tile plus its pad slots.
 constexpr int kColSmemLimit = 72 * 1024;
 
-// Columns per B/C tile for an axis of length n: 64 KB of data (plus pad
+// Columns per C tile for an axis of length n: 64 KB of data (plus pad
 // slots), 2 to 16 columns.
 int tile_cols(int n) {
   int c = 8192 / n;
@@ -186,36 +273,57 @@ size_t tile_bytes(int n, int cols) {
 
 extern "C" {
 
+// A. t the complex plane, or sv the phase (t null); tw the half twiddle
+// table of ny. logc (2^logc rows a tile): the tile plan (ops/fused_step.py
+// reg_tile_plan). info receives the grid,
+// blocks per SM, SMs and the dynamic shared memory in bytes.
 int fs_row_pass(void* out, const void* in, const void* t, const void* sv,
                 const void* tw, int n_probes, int nx, int ny, int mode,
-                void* stream) {
-  const int logn = ilog2(ny);
-  // threads per row: one per work item of a full-radix pass, 32 to 128
-  int tx = ny >> kMaxLogRadix;
-  if (tx < 32) tx = 32;
-  if (tx > kRowThreads) tx = kRowThreads;
-  const int ty = kRowThreads / tx;           // rows per block, divides nx
-  const dim3 grid(nx / ty, n_probes);
-  const dim3 block(tx, ty);
-  row_pass_kernel<<<grid, block, tile_bytes(ny, ty), (cudaStream_t)stream>>>(
-      (float2*)out, (const float2*)in, (const float2*)t, (const float*)sv,
-      (const float2*)tw, nx, logn, mode);
+                int logc, int* info, void* stream) {
+  const int bound = mode == kOnly ? kRegThreads : kRowThreads;
+  if (!reg_plan_ok(ny, nx, logc) || mode < kFirst || mode > kOnly ||
+      (ny / kRegE) << logc > bound) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const RegGeo g = reg_geo(tw, ny);
+  const int threads = g.T << logc;
+  // the tile buffer; with the phase, the factor slots too
+  const size_t smem =
+      mode == kOnly ? 0
+                    : reg_smem(ny, logc) +
+                          (sv != nullptr ? kRegE * threads * sizeof(float2)
+                                         : 0);
+  const int tpp = nx >> logc;
+  const long tiles = (long)n_probes * tpp;
+  const auto kernel =
+      sv != nullptr ? row_kernel<true>(mode) : row_kernel<false>(mode);
+  const cudaError_t err = persistent_grid(kernel, threads, smem, tiles, info);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)info[0], threads, smem, (cudaStream_t)stream>>>(
+      (float2*)out, (const float2*)in, (const float2*)t, (const float*)sv, g,
+      nx, logc, tpp, (int)tiles);
   return (int)cudaGetLastError();
 }
 
+// B. tw the half twiddle table of nx; logc (2^logc columns a tile) and
+// info as A's.
 int fs_col_pass(void* out, const void* in, const void* prop, const void* tw,
-                int n_probes, int nx, int ny, void* stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      col_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kColSmemLimit);
+                int n_probes, int nx, int ny, int logc, int* info,
+                void* stream) {
+  if (!reg_plan_ok(nx, ny, logc, kColPassThreads)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const RegGeo g = reg_geo(tw, nx);
+  const int threads = g.T << logc;
+  const size_t smem = reg_smem(nx, logc);
+  const int tpp = ny >> logc;
+  const long tiles = (long)n_probes * tpp;
+  const cudaError_t err =
+      persistent_grid(col_pass_kernel, threads, smem, tiles, info);
   if (err != cudaSuccess) return (int)err;
-  const int logn = ilog2(nx);
-  const int tc = tile_cols(nx);
-  const dim3 grid(ny / tc, n_probes);
-  col_pass_kernel<<<grid, kColThreads, tile_bytes(nx, tc),
-                    (cudaStream_t)stream>>>(
-      (float2*)out, (const float2*)in, (const float2*)prop,
-      (const float2*)tw, logn, ny, ilog2(tc));
+  col_pass_kernel<<<(unsigned)info[0], threads, smem, (cudaStream_t)stream>>>(
+      (float2*)out, (const float2*)in, (const float2*)prop, g, ny, logc, tpp,
+      (int)tiles);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,8 @@
 // engines), pair_row_tile for the adjoint's power-of-two backward row pass
 // K7 (fused_step_adjoint.cu, Pow2Eng). The persistent mixed-radix passes
 // K4 and K5 (fused_step_odd.cu) and K8 (fused_step_adjoint_odd.cu) have
-// their own tiles (tile_async.cuh).
+// their own tiles (tile_async.cuh), and so do A and B (fused_step.cu, on
+// the register-resident engine of fft_regs.cuh).
 //
 // An engine E gives: E::n, the axis length; row(i), the slot row of
 // element i in a tile (s[(row(i) << logc) + c]); kslot(k), the element

@@ -13,15 +13,18 @@ over the (P, nx, ny) wave, each reading and writing it once:
 and, for k-space exit waves, the last A runs as ``mid`` and C adds FFT_x
 with the fftshift of both axes folded into its store.
 
-The kernels (``csrc/fused_step.cu``) are FFTs in shared memory, in float32,
-run as radix-16 passes in registers. The wave stays in its natural order,
-complex64 interleaved, at every kernel boundary; inside a kernel the
-forward transform leaves bit-reversed order and the inverse consumes it,
-so the Fresnel plane is read at bit-reversed rows and never permuted in
-memory. This replaces the TPU kernels' digit-permuted order and split
-re/im planes, which were limits of Pallas on the TPU. A and B update the
-wave in place (the first A writes a new buffer, so the caller's probes are
-never overwritten).
+The kernels (``csrc/fused_step.cu``) are float32 FFTs. A and B keep each
+transform in registers (``csrc/fft_regs.cuh``: 32 values a thread,
+radix-32 Stockham stages, one exchange through shared memory between two
+stages), so their products read the transmission and the Fresnel plane at
+natural elements; C runs radix-16 passes in shared memory and folds the
+bit reversal of its forward into its store. The wave stays in its natural
+order, complex64 interleaved, at every kernel boundary. This replaces the
+TPU kernels' digit-permuted order and split re/im planes, which were
+limits of Pallas on the TPU. A and B update the wave in place (the first A
+writes a new buffer, so the caller's probes are never overwritten).
+``reg_tile_plan`` sizes their tiles; ``last_launch["a"]`` and ``["b"]``
+hold each one's last plan and grid.
 
 Each of ``row_pass``, ``col_pass`` and ``kconvert`` takes its plain
 ``torch.fft`` version for a tensor on the CPU, and for a CUDA tensor
@@ -152,8 +155,8 @@ def build() -> Build:
 
 
 _ARGTYPES = {
-    "fs_row_pass": "pppppiiiip",
-    "fs_col_pass": "ppppiiip",
+    "fs_row_pass": "pppppiiiiipp",
+    "fs_col_pass": "ppppiiiipp",
     "fs_kconvert": "pppiiip",
     "fs_row_pass_mr": "pppppiiiiiipp",
     "fs_col_pass_mr": "ppppiiiiipp",
@@ -243,6 +246,97 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
+# --- the tile plans of A and B --------------------------------------------------
+
+# A's and B's tiles (csrc/fft_regs.cuh): a thread holds REG_VALUES values of
+# one transform in registers, so a transform of n takes n / REG_VALUES
+# threads and a tile 2^logc of them side by side (A: rows, B: columns), at
+# most REG_MAX_LOGC. The kernels' launch bounds (csrc/fused_step.cu),
+# threads and blocks an SM: B 512 and 1 (so a thread may take 128
+# registers, and the tile is as wide as 512 threads allow: wider row
+# segments measured faster); A in its transform modes 128 and 3 (168 registers: its
+# transforms beside the product's loads need no spills); A `only`, which
+# takes few registers, 256 and 1. SMEM_SM: an SM's shared memory (228 KB),
+# less 1 KB the runtime keeps for each block.
+REG_VALUES = 32
+REG_MAX_LOGC = 5
+COL_BOUND = (512, 1)
+ROW_BOUND = (128, 3)
+ONLY_BOUND = (256, 1)
+SMEM_SM = 233472
+SMEM_BLOCK_RESERVED = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class RegPlan:
+    logc: int           # 2^logc lanes a tile: columns (B) or rows (A)
+    threads: int        # a block: n / REG_VALUES threads a lane
+    smem_bytes: int     # the tile buffer, padded (none for A `only`), and
+                        # A's phase factor slots
+    tiles: int          # (probe, tile) pairs the persistent grid walks
+    stages: tuple       # the radices of a transform
+
+    @property
+    def lanes(self) -> int:
+        return 1 << self.logc
+
+
+def reg_stages(n: int) -> tuple:
+    """The stages of a transform of n (``reg_geo`` of csrc/fft_regs.cuh):
+    radix 32 while it divides, then the rest."""
+    f, m = [], n
+    while m >= REG_VALUES:
+        f.append(REG_VALUES)
+        m //= REG_VALUES
+    if m > 1:
+        f.append(m)
+    return tuple(f)
+
+
+def reg_smem(n: int, logc: int, factors: bool = False) -> int:
+    """Shared memory of a block: the tile buffer, 2^logc lanes of n with
+    one pad slot every 32 elements, and with ``factors`` (A's phase form)
+    REG_VALUES factor slots a thread."""
+    slots = REG_VALUES * (n // REG_VALUES << logc) if factors else 0
+    return 8 * (((n + n // 32) << logc) + slots)
+
+
+def reg_tile_plan(n: int, n_probes: int, lanes: int, bound=COL_BOUND,
+                  factors: bool = False, transform: bool = True) -> RegPlan:
+    """The tile of A or B on transforms of length n (A: ny, B: nx), for
+    n_probes x ``lanes`` of them (A: nx rows, B: ny columns), both powers
+    of two from 128 to 4096, under a kernel's launch ``bound`` (threads,
+    blocks an SM): as many lanes as fill its threads (at most
+    2^REG_MAX_LOGC and ``lanes``), fewer where its blocks would not fit an
+    SM's shared memory. B at 1024: 16 lanes of 32 threads and a
+    135,168-byte tile buffer, one block an SM; A: 4 lanes, 33,792 bytes,
+    three blocks.
+    Without ``transform`` (A `only`) the block takes no shared memory."""
+    threads, blocks = bound
+    per = n // REG_VALUES
+    logc = min(REG_MAX_LOGC, max(0, (threads // per).bit_length() - 1),
+               lanes.bit_length() - 1)
+    smem = (lambda c: reg_smem(n, c, factors) if transform else 0)
+    while logc > 0 and blocks * (smem(logc) + SMEM_BLOCK_RESERVED) > SMEM_SM:
+        logc -= 1
+    return RegPlan(logc=logc, threads=per << logc, smem_bytes=smem(logc),
+                   tiles=n_probes * (lanes >> logc), stages=reg_stages(n))
+
+
+# The last launch of each persistent kernel (A, B here; K4, K5 in
+# ops.fused_step_odd; K8 in ops.fused_step_adjoint): its plan and the grid
+# the occupancy query gave (grid, blocks_per_sm, sms, smem_bytes).
+last_launch = {"a": {}, "b": {}, "k4": {}, "k5": {}, "k8": {}}
+
+
+def _record_reg_launch(kernel: str, plan: RegPlan, info) -> None:
+    rec = last_launch[kernel]
+    rec.clear()
+    rec.update(lanes=plan.lanes, threads=plan.threads, tiles=plan.tiles,
+               stages=plan.stages)
+    rec.update(zip(("grid", "blocks_per_sm", "sms", "smem_bytes"), info))
+
+
 # --- plain versions ----------------------------------------------------------
 
 
@@ -294,13 +388,19 @@ def row_pass(mode: str, state: torch.Tensor, t: torch.Tensor,
     _check_cuda(t, "t", (nx, ny), torch.float32 if phase else torch.complex64,
                 state.device)
     out = _out_for(state, out)
+    plan = (reg_tile_plan(ny, n_probes, nx, ONLY_BOUND, transform=False)
+            if mode == "only" else
+            reg_tile_plan(ny, n_probes, nx, ROW_BOUND, factors=phase))
+    info = (ctypes.c_int * 4)()
     lib = build().libs["fused_step"]
     with torch.cuda.device(state.device):
         err = lib.fs_row_pass(
             out.data_ptr(), state.data_ptr(),
             None if phase else t.data_ptr(), t.data_ptr() if phase else None,
             _twiddles(ny, state.device).data_ptr(), n_probes, nx, ny,
-            ROW_MODES[mode], torch.cuda.current_stream().cuda_stream)
+            ROW_MODES[mode], plan.logc, ctypes.addressof(info),
+            torch.cuda.current_stream().cuda_stream)
+    _record_reg_launch("a", plan, info)
     _raise_on(err, "row_pass (A)")
     launches["a"] += 1
     return out
@@ -316,12 +416,16 @@ def col_pass(state: torch.Tensor, prop: torch.Tensor,
     n_probes, nx, ny = state.shape
     _check_cuda(prop, "prop", (nx, ny), torch.complex64, state.device)
     out = _out_for(state, out)
+    plan = reg_tile_plan(nx, n_probes, ny)
+    info = (ctypes.c_int * 4)()
     lib = build().libs["fused_step"]
     with torch.cuda.device(state.device):
         err = lib.fs_col_pass(
             out.data_ptr(), state.data_ptr(), prop.data_ptr(),
             _twiddles(nx, state.device).data_ptr(), n_probes, nx, ny,
+            plan.logc, ctypes.addressof(info),
             torch.cuda.current_stream().cuda_stream)
+    _record_reg_launch("b", plan, info)
     _raise_on(err, "col_pass (B)")
     launches["b"] += 1
     return out

@@ -47,8 +47,8 @@ import torch
 
 from .fused_step import (_check_cuda, _check_state, _chain, _out_for,
                          _plain_col_pass, _plain_row_pass, _raise_on,
-                         _twiddles, build, launches, record_layers_chain,
-                         ROW_MODES)
+                         _twiddles, build, last_launch, launches,
+                         record_layers_chain, ROW_MODES)
 
 # The engine's limit: one row of 4096 in two shared-memory buffers, 64 KB.
 MAX_AXIS = 4096
@@ -129,10 +129,10 @@ SMEM_MAX = 232448
 # 0.88; at 16 x 1018^2, prime 509, 14.3 against 0.80 and 19.6 against 1.18).
 KERNEL_MAX_RADIX = 31
 
-# The last launch of each kernel (K8's: ops.fused_step_adjoint): the plan
-# (lanes, threads, busy, tiles, table) and the grid the occupancy query
-# gave (grid, blocks_per_sm, sms, smem_bytes).
-last_launch = {"k4": {}, "k5": {}, "k8": {}}
+# The last launch of each kernel is kept in ``last_launch`` (shared with A
+# and B, ops.fused_step; K8's: ops.fused_step_adjoint): the plan (lanes,
+# threads, busy, tiles, table) and the grid the occupancy query gave (grid,
+# blocks_per_sm, sms, smem_bytes).
 
 
 def stage_radices(n: int) -> list:

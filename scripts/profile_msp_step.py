@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Profile warm multislice-ptychography steps of a checkout's
-pyslice_tpu_torch on one CUDA card: device time by kernel (torch.profiler,
-kernel rows), launches a step, and the device's idle share of the wall
-time.
+"""Profile warm multislice-ptychography steps, or warm STEM frames, of a
+checkout's pyslice_tpu_torch on one CUDA card: device time by kernel
+(torch.profiler, kernel rows), launches a step or frame, and the device's
+idle share of the wall time.
 
-    python3 scripts/profile_msp_step.py [--root DIR] [--grid 1023]
+    python3 scripts/profile_msp_step.py [--root DIR] [--grid 1023] [--stem]
 
 --root is the checkout whose package is imported and built (by default the
 one around this script); two checkouts compare in one call by running the
@@ -15,8 +15,13 @@ kernel forward, ``msp_reconstruct`` with batch 16 (16 positions x 14
 slices a step). One call of one step warms up; then a call of STEPS
 steps runs with the profiler on from the start of its first step to the
 end of its last (each step ends in a synchronize, as chip_smoke.py times
-them; the call's set-up and its copies back lie outside). Prints a row per
-kernel (ms and launches a step), the totals, and, last, one JSON object.
+them; the call's set-up and its copies back lie outside). With --stem the
+workload is chip_smoke.py's phase 5 (at 1023^2 its phase 8) instead: 16
+probes on a 4 x 4 grid over the box, 14 slices, k-space exit waves of one
+frame through ``frame_exit_waves`` (rasterizer included), one frame to
+warm up and STEPS frames profiled, each ending in a synchronize. Prints a
+row per kernel (ms and launches a step or frame), the totals, and, last,
+one JSON object.
 """
 
 import argparse
@@ -47,6 +52,7 @@ def main():
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parent.parent)
     ap.add_argument("--grid", type=int, default=1023, choices=[1023, 1024])
+    ap.add_argument("--stem", action="store_true")
     args = ap.parse_args()
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -68,6 +74,8 @@ def main():
     dev = torch.device("cuda")
     fs.build()
     lx = 102.25 if args.grid == 1023 else 102.35
+    if args.stem:
+        return profile_stem(args, root, card, dev, lx)
     traj = hbn_box(lx, 1)
     calc = pt.MultisliceCalculator(device=dev)
     half = 0.5 * 0.5 * 7
@@ -113,7 +121,51 @@ def main():
                            steps=STEPS, **kw)
     finally:
         ptycho._MspRun.step = step
-    wall_ms = 1e3 * window["s"] / STEPS
+    return report(prof, window["s"], root, card,
+                  f"msp step at {args.grid}^2 (16 positions x {calc.nz} "
+                  f"slices)", "step", {"grid": args.grid})
+
+
+def profile_stem(args, root, card, dev, lx):
+    """Profile STEPS warm STEM frames (16 probes, k-space exit waves)."""
+    import torch
+    import pyslice_tpu_torch as pt
+    from chip_smoke import hbn_box
+    from pyslice_tpu_torch.engine.pipeline import frame_exit_waves
+    from pyslice_tpu_torch.ops import fused_step as fs
+
+    traj = hbn_box(lx, STEPS + 1)
+    calc = pt.MultisliceCalculator(device=dev)
+    calc.setup(traj, aperture=30.0, voltage_eV=100e3, sampling=0.1,
+               slice_thickness=0.5,
+               probe_positions=pt.probe_grid([10, 90], [10, 90], 4, 4),
+               device_output=True, use_cache=False)
+    probes = calc._probes_array()
+    frame_exit_waves(traj.positions[0], probes, calc.spec)
+    torch.cuda.synchronize()
+    for key in fs.launches:
+        fs.launches[key] = 0
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    t0 = time.perf_counter()
+    for f in range(1, STEPS + 1):
+        frame_exit_waves(traj.positions[f], probes, calc.spec)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    prof.stop()
+    return report(prof, seconds, root, card,
+                  f"STEM frame at {calc.nx}x{calc.ny} ({calc.n_probes} "
+                  f"probes x {calc.nz} slices)", "frame",
+                  {"grid": args.grid, "stem": True})
+
+
+def report(prof, seconds, root, card, what, unit, extra):
+    """Print the kernel rows of STEPS profiled steps or frames; 0."""
+    import torch
+    from pyslice_tpu_torch.ops import fused_step as fs
+    wall_ms = 1e3 * seconds / STEPS
     launches = {k: v / STEPS for k, v in fs.launches.items() if v}
     rows = {}
     for e in prof.key_averages():
@@ -126,15 +178,14 @@ def main():
         ms, n = rows.get(lab, (0.0, 0))
         rows[lab] = (ms + 1e-3 * us / STEPS, n + e.count / STEPS)
     device_ms = sum(ms for ms, _ in rows.values())
-    print(f"msp step at {args.grid}^2 (16 positions x {calc.nz} slices), "
-          f"{STEPS} warm steps; root {root}; card {card}")
+    print(f"{what}, {STEPS} warm {unit}s; root {root}; card {card}")
     for lab, (ms, n) in sorted(rows.items(), key=lambda r: -r[1][0]):
-        print(f"  {lab:70s} {ms:8.3f} ms/step  {n:6.1f} launches/step")
+        print(f"  {lab:70s} {ms:8.3f} ms/{unit}  {n:6.1f} launches/{unit}")
     idle = 1.0 - device_ms / wall_ms if device_ms else None
-    print(f"  wall {wall_ms:.3f} ms/step, device {device_ms:.3f} ms/step, "
+    print(f"  wall {wall_ms:.3f} ms/{unit}, device {device_ms:.3f} ms/{unit}, "
           f"idle {'not measured' if idle is None else f'{100 * idle:.1f}%'}; "
-          f"kernel launches/step {launches}")
-    print(json.dumps({"root": str(root), "card": card, "grid": args.grid,
+          f"kernel launches/{unit} {launches}")
+    print(json.dumps({"root": str(root), "card": card, **extra,
                       "wall_ms": wall_ms, "device_ms": device_ms,
                       "idle": idle, "launches": launches,
                       "kernels": {k: {"ms": ms, "launches": n}

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time the mixed-radix kernels of a checkout's pyslice_tpu_torch on one CUDA
-card, each after holding it to its plain torch.fft version: K4 (the row
-pass ``row_pass_mr``), K5 (the column pass ``col_pass_mr``), K6 (the
-resident slice loop ``resident_loop``) and K8 (the adjoint's backward row
-pass ``row_pass_mr_bwd``).
+"""Time the slice-step kernels of a checkout's pyslice_tpu_torch on one CUDA
+card, each after holding it to its plain torch.fft version: A and B (the
+power-of-two row and column passes ``row_pass``, ``col_pass``), K4 (the
+mixed-radix row pass ``row_pass_mr``), K5 (the column pass
+``col_pass_mr``), K6 (the resident slice loop ``resident_loop``) and K8
+(the adjoint's backward row pass ``row_pass_mr_bwd``).
 
-    python3 scripts/time_col_pass_mr.py [--root DIR] [--kernels k4 k5 k6 k8]
+    python3 scripts/time_col_pass_mr.py [--root DIR] [--kernels a b k4 k5 k6 k8]
         [--mode mid] [--phase] [--shapes 16x1023 32x1023] [--plain]
         [--shift] [--nz 14] [--reps 20] [--rounds 5]
 
@@ -16,17 +17,18 @@ with another commit, unpack it into a git-ignored directory
 (``git archive <commit> | tar -x -C build/parent``) and run the script on
 each root in turn: parent, this, this, parent.
 
-A shape PxN is P planes of N^2 for K4 and K5, P probes of N^2 through
---nz slices for K6, and P pairs (2P planes) of N^2 for K8. --mode is K4's
-mode and K8's (``mid`` or ``last``); in ``mid`` mode K4 and K8 run in
-place, in the others they write a second buffer. --phase hands K4 and K8
-the transmission as the float32 phase sigma*V (cos/sin taken in the
-kernel) instead of the complex plane. --plain times the plain version
+A shape PxN is P planes of N^2 for A, B, K4 and K5, P probes of N^2
+through --nz slices for K6, and P pairs (2P planes) of N^2 for K8. --mode
+is A's and K4's mode and K8's (``mid`` or ``last``); in ``mid`` mode A, K4
+and K8 run in place, in the others they write a second buffer (B and K5
+always run in place). --phase hands A, K4 and K8 the transmission as the
+float32 phase sigma*V (cos/sin taken in the kernel) instead of the
+complex plane. --plain times the plain version
 too, in the same rounds (the order reversed every other round), for the
 routing rule of ``fused_step_odd.kernel_preferred_mr``. --shift places
 the wave one
-complex64 element (8 bytes) past a 16-byte boundary (K5's 8-byte copy
-path on an even N). Each timing is --rounds rounds of --reps launches
+complex64 element (8 bytes) past a 16-byte boundary (the 8-byte copy path
+of B and K5 on an even N). Each timing is --rounds rounds of --reps launches
 (CUDA events), and the median round is reported. Prints a line per
 (kernel, shape) and, last, one JSON object.
 """
@@ -66,6 +68,16 @@ def case(kernel, mode, phase_t, P, n, nz, shift, dev, g):
     plane = torch.polar(torch.ones_like(phase), phase)
     t = phase if phase_t else plane
     out = psi if mode == "mid" else torch.empty_like(psi)
+    if kernel == "a":
+        return (lambda: fs.row_pass(mode, psi, t, out=out),
+                lambda: fs._plain_row_pass(mode, psi, t),
+                [(fs.row_pass(mode, psi, t),
+                  fs._plain_row_pass(mode, psi, t), False)])
+    if kernel == "b":
+        return (lambda: fs.col_pass(psi, plane, out=psi),
+                lambda: fs._plain_col_pass(psi, plane),
+                [(fs.col_pass(psi, plane),
+                  fs._plain_col_pass(psi, plane), False)])
     if kernel == "k4":
         return (lambda: fo.row_pass_mr(mode, psi, t, out=out),
                 lambda: fs._plain_row_pass(mode, psi, t),
@@ -125,7 +137,7 @@ def main():
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parent.parent)
     ap.add_argument("--kernels", nargs="+", default=["k5"],
-                    choices=["k4", "k5", "k6", "k8"])
+                    choices=["a", "b", "k4", "k5", "k6", "k8"])
     ap.add_argument("--mode", default="mid",
                     choices=["first", "mid", "last", "only"])
     ap.add_argument("--shapes", nargs="+", default=["16x1023", "32x1023"])
@@ -178,11 +190,12 @@ def main():
                 print(f"{kernel} at {spec}: the kernel was not launched",
                       file=sys.stderr)
                 return 1
-            plan = dict(getattr(fo, "last_launch", {}).get(kernel, {}))
+            plan = dict(getattr(fs, "last_launch",
+                                getattr(fo, "last_launch", {})).get(kernel, {}))
             entry = {"ms": ms, "rounds_ms": ts, "max_rel": errs[0][0],
                      "residual": errs[0][1], "plan": plan}
             form = (f"{args.mode}{' phase' if args.phase else ''} "
-                    if kernel in ("k4", "k8") else "")
+                    if kernel in ("a", "k4", "k8") else "")
             line = (f"{kernel} {form}at {spec}^2"
                     f"{' shifted' if args.shift else ''}: {ms:.4f} ms")
             if rest:

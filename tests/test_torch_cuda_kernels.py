@@ -78,6 +78,7 @@ def test_row_pass_matches_plain(dev, shape, mode, phase):
     got = fs.row_pass(mode, psi, t)
     assert fs.launches["a"] == n0 + 1
     _ok(got, fs._plain_row_pass(mode, psi, t))
+    _grid_ok(fs.last_launch["a"])
     buf = psi.clone()
     assert fs.row_pass(mode, buf, t, out=buf) is buf       # in place
     _ok(buf, got)
@@ -92,7 +93,77 @@ def test_col_pass_and_kconvert_match_plain(dev, shape):
     prop = fs.fresnel_plane(kxs, kys, LAM, 0.4846, kmax2=16.0,
                             tantilt=(0.003, -0.001), device=dev)
     _ok(fs.col_pass(psi, prop), fs._plain_col_pass(psi, prop))
+    _grid_ok(fs.last_launch["b"])
     _ok(fs.kconvert(psi), fs._plain_kconvert(psi))
+
+
+def _t_form(dev, nx, ny, phase):
+    sv = _phase(dev, nx, ny)
+    return sv if phase else torch.complex(torch.cos(sv), torch.sin(sv))
+
+
+@pytest.mark.parametrize("P", [16, 32])
+def test_col_pass_in_place_at_1024(dev, P):
+    """B at 16 x 1024^2 (the forward's) and 32 x 1024^2 (the adjoint's
+    pair stream), a new buffer and in place."""
+    psi = _wave(dev, P, 1024, 1024)
+    prop = _prop(dev, 1024, 1024)
+    got = fs.col_pass(psi, prop)
+    _ok(got, fs._plain_col_pass(psi, prop))
+    run = fs.last_launch["b"]
+    _grid_ok(run)
+    assert run["blocks_per_sm"] >= fs.COL_BOUND[1]
+    buf = psi.clone()
+    assert fs.col_pass(buf, prop, out=buf) is buf
+    _ok(buf, got)
+
+
+@pytest.mark.parametrize("mode", ["first", "mid", "last", "only"])
+@pytest.mark.parametrize("phase", [False, True])
+def test_row_pass_in_place_at_1024_is_bit_identical(dev, mode, phase):
+    """A at 16 x 1024^2 in place in every mode and t form; two launches on
+    the same inputs give the same bits."""
+    psi = _wave(dev, 16, 1024, 1024)
+    t = _t_form(dev, 1024, 1024, phase)
+    first = fs.row_pass(mode, psi, t)
+    second = fs.row_pass(mode, psi, t)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _ok(first, fs._plain_row_pass(mode, psi, t))
+    buf = psi.clone()
+    assert fs.row_pass(mode, buf, t, out=buf) is buf
+    torch.cuda.synchronize()
+    assert torch.equal(buf, first)
+
+
+def test_col_pass_is_bit_identical(dev):
+    psi = _wave(dev, 16, 1024, 1024)
+    prop = _prop(dev, 1024, 1024)
+    first = fs.col_pass(psi, prop)
+    second = fs.col_pass(psi, prop)
+    buf = psi.clone()
+    fs.col_pass(buf, prop, out=buf)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(buf, first)
+
+
+@pytest.mark.parametrize("shape", [(16, 1024, 1024), (3, 256, 512)])
+def test_passes_on_a_view_off_16_byte_alignment(dev, shape):
+    """A wave one complex64 element (8 bytes) past a 16-byte boundary: A
+    and B, which load and store 8 bytes a value, agree with their plain
+    versions, in place too."""
+    P, nx, ny = shape
+    store = torch.empty(P * nx * ny + 1, dtype=torch.complex64, device=dev)
+    psi = store[1:].view(P, nx, ny)
+    psi.copy_(_wave(dev, P, nx, ny))
+    assert psi.data_ptr() % 16 == 8
+    prop = _prop(dev, nx, ny)
+    _ok(fs.col_pass(psi, prop), fs._plain_col_pass(psi, prop))
+    t = _t_form(dev, nx, ny, False)
+    _ok(fs.row_pass("mid", psi, t), fs._plain_row_pass("mid", psi, t))
+    want = fs._plain_col_pass(psi, prop)
+    assert fs.col_pass(psi, prop, out=psi) is psi
+    _ok(psi, want)
 
 
 @pytest.mark.parametrize("nz", [1, 2, 14])

@@ -173,3 +173,53 @@ def test_unsupported_grid_and_device_raise():
         tfs.row_pass("first", meta, torch.empty((128, 128), device="meta"))
     with pytest.raises(ValueError, match="mode"):
         tfs.row_pass("middle", psi[:, :128], v[0, :128])
+
+
+POW2_AXES = [128, 256, 512, 1024, 2048, 4096]
+
+
+@pytest.mark.parametrize("n", POW2_AXES)
+@pytest.mark.parametrize("other", [128, 1024, 4096])
+@pytest.mark.parametrize("kernel", ["b", "a", "a phase", "a only"])
+def test_reg_tile_plan(n, other, kernel):
+    """A's and B's plan at every pow2 axis (A: ny, B: nx) against every
+    other, under each kernel's launch bound: lanes that divide the other
+    axis, n / 32 threads a lane within the bound, the blocks the bound
+    promises in an SM's shared memory (A `only` takes none), B's tiles at
+    least four columns wide where the other axis has them (a warp's row
+    segments fill 32-byte sectors), and the stages of reg_geo
+    (csrc/fft_regs.cuh)."""
+    bound = {"b": tfs.COL_BOUND, "a only": tfs.ONLY_BOUND}.get(
+        kernel, tfs.ROW_BOUND)
+    factors, transform = kernel == "a phase", kernel != "a only"
+    plan = tfs.reg_tile_plan(n, 16, other, bound, factors, transform)
+    assert other % plan.lanes == 0 and 1 <= plan.lanes <= 32
+    assert plan.threads == (n // tfs.REG_VALUES) * plan.lanes
+    assert plan.threads % 32 == 0 and plan.threads <= bound[0]
+    assert plan.smem_bytes == (tfs.reg_smem(n, plan.logc, factors)
+                               if transform else 0)
+    assert (bound[1] * (plan.smem_bytes + tfs.SMEM_BLOCK_RESERVED)
+            <= tfs.SMEM_SM)
+    assert plan.tiles == 16 * other // plan.lanes
+    assert plan.lanes >= 4 or kernel != "b"
+    assert int(np.prod(plan.stages)) == n and plan.stages[0] == 32
+    assert all(32 % r == 0 for r in plan.stages)
+
+
+def test_reg_tile_plan_at_1024():
+    """The main path's plans at 16 x 1024^2: B 16 lanes of 32 threads, a
+    135,168-byte tile buffer, one block an SM; A 4 lanes, 33,792 bytes
+    (66,560 with the phase's factor slots), three blocks; A `only` 8 lanes
+    and no shared memory."""
+    b = tfs.reg_tile_plan(1024, 16, 1024)
+    assert (b.lanes, b.threads, b.smem_bytes, b.tiles,
+            b.stages) == (16, 512, 135168, 1024, (32, 32))
+    a = tfs.reg_tile_plan(1024, 16, 1024, tfs.ROW_BOUND)
+    assert (a.lanes, a.threads, a.smem_bytes, a.tiles) == (
+        4, 128, 33792, 4096)
+    phase = tfs.reg_tile_plan(1024, 16, 1024, tfs.ROW_BOUND, factors=True)
+    assert phase.smem_bytes == 66560
+    only = tfs.reg_tile_plan(1024, 16, 1024, tfs.ONLY_BOUND, transform=False)
+    assert (only.lanes, only.threads, only.smem_bytes) == (8, 256, 0)
+    assert tfs.reg_stages(4096) == (32, 32, 4)
+    assert tfs.reg_stages(128) == (32, 4)
