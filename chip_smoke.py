@@ -32,9 +32,9 @@ Phases, each printing one line (or a few) and failing hard:
    nz - 1 times a frame, HAADF finite and positive;
 9. the adjoint's kernels against their plain versions: K7 at 16 pairs x
    1024^2 and K8 at 16 pairs x 1023^2 (mid mode with planes and with the
-   phase, last mode; K8 with its tile plan and persistent grid), then each
-   whole adjoint chain (14 slices) against its plain twin on lambda_0 and
-   vbar;
+   phase, last mode; each with its tile plan and persistent grid; vbar of
+   two launches bit-identical), then each whole adjoint chain (14 slices)
+   against its plain twin on lambda_0 and vbar;
 10. multislice ptychography at 1024^2 and at 1023^2: frame 0 of the boxes
    of phases 5 and 8, data from the kernel forward (64 positions on an
    8 x 8 scan), the gradients of one minibatch loss (V and probe) through
@@ -621,8 +621,8 @@ def adjoint_kernel_phase(dev, P=N_PROBES, nz=N_SLICES,
     import torch
     from pyslice_tpu_torch.core.constants import (interaction_parameter,
                                                   wavelength)
+    from pyslice_tpu_torch.ops import fused_step as fs
     from pyslice_tpu_torch.ops import fused_step_adjoint as fa
-    from pyslice_tpu_torch.ops import fused_step_odd as fo
 
     lam, sigma = wavelength(100e3), interaction_parameter(100e3)
     kernels = {"k7": (fa.row_pass_bwd, fa.fused_adjoint_chain),
@@ -645,7 +645,14 @@ def adjoint_kernel_phase(dev, P=N_PROBES, nz=N_SLICES,
                                  got[0], want[0]))
             check_rel(f"{key.upper()} {mode:4s} {label:6s} vbar", got[1],
                       want[1])
-        del got, want
+            again = row_bwd(mode, state, tt, sigma)
+            torch.cuda.synchronize()
+            require(torch.equal(again[1], got[1])
+                    and torch.equal(again[0], got[0]),
+                    f"{key.upper()} {mode} {label}: two launches differ")
+        print(f"  {key.upper()}: two launches give the same bits, pairs and "
+              "vbar, in every mode")
+        del got, want, again
         a, gout = state[:P].clone(), state[P:].clone()
         v = torch.randn((nz, n, n), device=dev, generator=g) * 50.0
         ks = np.fft.fftfreq(n, 0.1)
@@ -669,11 +676,10 @@ def adjoint_kernel_phase(dev, P=N_PROBES, nz=N_SLICES,
         records.update(records_for({key: err}, {key: timing},
                                    {key: kernel_bound("pairs", P, n)},
                                    f"{P} pairs x {n}^2, mid"))
-        if key == "k8":
-            plan = dict(fo.last_launch["k8"])
-            print(f"    K8 tile plan and persistent grid at {P} pairs x "
-                  f"{n}^2: {plan}")
-            records["k8"]["plan"] = plan
+        plan = dict(fs.last_launch[key])
+        print(f"    {key.upper()} tile plan and persistent grid at {P} pairs "
+              f"x {n}^2: {plan}")
+        records[key]["plan"] = plan
         del state
     return records
 

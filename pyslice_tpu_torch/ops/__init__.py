@@ -12,7 +12,9 @@ Kernel map (``pyslice_tpu/ops`` Pallas kernel -> this package):
 
 * ``fused_step._kernel_a`` / ``_kernel_b`` / ``_kernel_c`` ->
   ``fused_step.row_pass`` / ``col_pass`` / ``kconvert``, CUDA C++ in
-  ``csrc/fused_step.cu`` (power-of-two axes, radix-16 engine).
+  ``csrc/fused_step.cu`` (power-of-two axes; A and B on the
+  register-resident engine ``csrc/fft_regs.cuh``, C on the radix-16
+  engine ``csrc/fft_pow2.cuh``).
 * ``transmit._kernel`` (psi * exp(i sigma V), cos/sin in the kernel) is
   kernel A's ``only`` mode with the phase plane:
   ``row_pass("only", psi, sigma * V)``. It has no kernel of its own.
@@ -31,9 +33,9 @@ Kernel map (``pyslice_tpu/ops`` Pallas kernel -> this package):
   ``fused_step_odd_resident.fused_multislice[_kspace]_odd_resident``.
 * ``fused_step_adjoint._kernel_a_bwd`` (#9) and ``_kernel_a_bwd_odd``
   (#10) -> K7 ``fused_step_adjoint.row_pass_bwd`` (``csrc/
-  fused_step_adjoint.cu``, radix-16 engine) and K8 ``row_pass_mr_bwd``
-  (``csrc/fused_step_adjoint_odd.cu``, Stockham engine), one template
-  (``csrc/tiles.cuh``: ``pair_row_tile``). Chains
+  fused_step_adjoint.cu``, A's register-resident engine) and K8
+  ``row_pass_mr_bwd`` (``csrc/fused_step_adjoint_odd.cu``, K4's
+  persistent tiles on the Stockham engine). Chains
   ``fused_step_adjoint.fused_adjoint_chain[_odd]`` reuse A / K4
   (``first``) and B / K5 with conj(t) and conj(P); entry point
   ``physics.adjoint.multislice_diff``.

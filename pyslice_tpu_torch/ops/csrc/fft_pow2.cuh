@@ -1,8 +1,8 @@
-// The power-of-two FFT engine in shared memory: kernel C (fused_step.cu),
-// the resident slice loop's radix-16 instantiation K6 (resident.cu) and
-// the adjoint's backward row pass K7 (fused_step_adjoint.cu, through
-// tiles.cuh). A and B keep their transforms in registers (fft_regs.cuh)
-// and take only this header's complex helpers and row modes.
+// The power-of-two FFT engine in shared memory: kernel C (fused_step.cu)
+// and the resident slice loop's radix-16 instantiation K6 (resident.cu,
+// through tiles.cuh). A, B and K7 keep their transforms in registers
+// (fft_regs.cuh) and take only this header's complex helpers and row
+// modes.
 //
 // Each 1-D transform is an in-place FFT in shared memory, run as passes of
 // up to four radix-2 stages held in registers (radix 16: a 1024-point

@@ -1,6 +1,7 @@
-// The register-resident FFT engine of kernels A and B (fused_step.cu): a
-// power-of-two transform of n = 128 .. 4096 values on T = n / 32 threads,
-// each holding 32 of them in registers from the load to the store.
+// The register-resident FFT engine of kernels A and B (fused_step.cu) and
+// K7 (fused_step_adjoint.cu): a power-of-two transform of n = 128 .. 4096
+// values on T = n / 32 threads, each holding 32 of them in registers from
+// the load to the store.
 //
 // Thread t of a transform holds element t + T m of it in v[m], m < 32: the
 // load, the store and the pass's products all read or write the wave
@@ -216,6 +217,31 @@ __device__ void reg_fft(float2 (&v)[kRegE], const RegGeo& g, float2* buf,
       for (int m = 0; m < kRegE; ++m) v[m] = buf[xm(t + g.T * m)];
     }
     ns *= R;
+  }
+}
+
+// v[m] *= f[m stride] * scale for the thread's values, f its factors: the
+// complex plane in device memory from the thread's first element
+// (kGlobal), or slots in shared memory (A's phase form: the thread's own;
+// K7: its row's). kU factors are loaded before any is used, with no select
+// on a loaded value.
+template <bool kGlobal>
+__device__ __forceinline__ void mul_plane(float2 (&v)[kRegE],
+                                          const float2* __restrict__ f,
+                                          int stride, float scale) {
+  constexpr int kU = 4;
+#pragma unroll
+  for (int m0 = 0; m0 < kRegE; m0 += kU) {
+    float2 q[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int k = (m0 + u) * stride;
+      q[u] = kGlobal ? __ldg(&f[k]) : f[k];
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      v[m0 + u] = cscale(cmul(v[m0 + u], q[u]), scale);
+    }
   }
 }
 

@@ -46,30 +46,6 @@
 
 namespace {
 
-// v[m] *= f[m stride] * scale for the thread's values, f its factors: the
-// complex plane in device memory from the thread's first element
-// (kGlobal), or its own slots in shared memory. kU factors are loaded
-// before any is used, with no select on a loaded value.
-template <bool kGlobal>
-__device__ __forceinline__ void mul_plane(float2 (&v)[kRegE],
-                                          const float2* __restrict__ f,
-                                          int stride, float scale) {
-  constexpr int kU = 4;
-#pragma unroll
-  for (int m0 = 0; m0 < kRegE; m0 += kU) {
-    float2 q[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int k = (m0 + u) * stride;
-      q[u] = kGlobal ? __ldg(&f[k]) : f[k];
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      v[m0 + u] = cscale(cmul(v[m0 + u], q[u]), scale);
-    }
-  }
-}
-
 // A's launch bound in its transform modes, threads and blocks an SM (168
 // registers a thread: no spills with either t form); `only` takes
 // kRegThreads, one block, and the registers it needs.

@@ -5,8 +5,8 @@
 //   K8  pair-packed row pass, odd grids  <- _kernel_a_bwd_odd via
 //       _call_a_bwd_odd (pallas_call at fused_step_adjoint.py:346)
 //
-// The work of K7 (fused_step_adjoint.cu, which keeps tiles.cuh's
-// pair_row_tile) on the mixed-radix Stockham engine, for the (2 P, nx, ny)
+// The work of K7 (fused_step_adjoint.cu, on the register engine of
+// fft_regs.cuh) on the mixed-radix Stockham engine, for the (2 P, nx, ny)
 // pair stream whose rows 2p and 2p + 1 are (a_p, lambda_p): IFFT_y of both
 // members, vbar += -sigma Im(conj(lambda_p) a_p) summed over p in pair
 // order, then in mid mode x t (the caller's conjugated plane, or the

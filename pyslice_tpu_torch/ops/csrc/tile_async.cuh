@@ -6,8 +6,9 @@
 // transform, each pass's transform of one tile (row_tile_compute,
 // col_tile_compute, pair_tile_compute), and the persistent walk and launch
 // sizing the three share (persistent_tiles, persistent_grid, plan_ok). K6
-// and K7 keep the tile functions of tiles.cuh and the stage routine
-// sk_pass of fft_mixed.cuh.
+// keeps the tile functions of tiles.cuh and the stage routine sk_pass of
+// fft_mixed.cuh; A, B and K7 run the register engine of fft_regs.cuh,
+// which takes persistent_grid and the DFT helpers from here.
 //
 // Layout as in tiles.cuh: a tile holds 2^logc lanes side by side (K5: the
 // wave's columns; K4: its rows; K8: its rows' pair members, lane 2r + c

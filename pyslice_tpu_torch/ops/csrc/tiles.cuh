@@ -1,11 +1,11 @@
 // The per-tile work of the slice step, written once for both FFT engines
 // (Pow2Eng of fft_pow2.cuh, MixedEng of fft_mixed.cuh): row_tile, col_tile
 // and kconv_tile for the resident slice loop K6 (resident.cu, both
-// engines), pair_row_tile for the adjoint's power-of-two backward row pass
-// K7 (fused_step_adjoint.cu, Pow2Eng). The persistent mixed-radix passes
-// K4 and K5 (fused_step_odd.cu) and K8 (fused_step_adjoint_odd.cu) have
-// their own tiles (tile_async.cuh), and so do A and B (fused_step.cu, on
-// the register-resident engine of fft_regs.cuh).
+// engines). The persistent mixed-radix passes K4 and K5 (fused_step_odd.cu)
+// and K8 (fused_step_adjoint_odd.cu) have their own tiles
+// (tile_async.cuh), and so do A, B (fused_step.cu) and K7
+// (fused_step_adjoint.cu), on the register-resident engine of
+// fft_regs.cuh.
 //
 // An engine E gives: E::n, the axis length; row(i), the slot row of
 // element i in a tile (s[(row(i) << logc) + c]); kslot(k), the element
@@ -151,114 +151,6 @@ __device__ void kconv_tile(const E& ex, float2* a, float2* b,
     out[plane + (size_t)ox * ny + oy] =
         s[(ex.row(ex.kslot(kx)) << logc) + (q & cmask)];
   }
-}
-
-// Pair row tile of the adjoint's backward row pass K7 (written for either
-// engine; K7 runs it with Pow2Eng, K8 has its own in tile_async.cuh): rows x0 .. x0 + 2^logr - 1 of every pair of the
-// (2 n_pairs, nx, ny) stream, whose rows 2p and 2p + 1 hold the pair's
-// members w0 = a and w1 = lambda (ny = ey.n). The tile's columns are
-// (row r, member c) at 2r + c. For p = 0 .. n_pairs - 1 in order: IFFT_y of
-// both members, then
-//   vbar += nsigma * Im(conj(w1) w0)         (nsigma = -sigma)
-// and, with `last`, the real-space pair is stored; otherwise it is
-// multiplied by t and transformed back (FFT_y), as kernel A's mid mode. t is
-// the slice's (nx, ny) plane or, when t == nullptr, sv its phase (the
-// caller passes the conjugated plane or the negated phase). Each (row,
-// element) of the vbar rows in `vb` (shared, 2^logr rows of ny floats)
-// belongs to one thread for the whole loop, so the sum over pairs is taken
-// in pair order without atomics and stored once, at the end. The tile reads
-// each pair's rows whole before it writes them, so `out` may equal `in`.
-template <class E>
-__device__ void pair_row_tile(const E& ey, float2* a, float2* b, float* vb,
-                              float2* out, const float2* in,
-                              const float2* __restrict__ t,
-                              const float* __restrict__ sv,
-                              float* __restrict__ vbar, int n_pairs, int x0,
-                              int nx, int logr, bool last, float nsigma,
-                              int tid, int nt) {
-  const int n = ey.n;
-  const int logc = logr + 1;
-  const int tot = n << logr;               // (row, element) items
-  const float scale = 1.0f / (float)n;
-  for (int q = tid; q < tot; q += nt) vb[q] = 0.0f;
-  for (int p = 0; p < n_pairs; ++p) {
-    __syncthreads();
-    for (int q = tid; q < 2 * tot; q += nt) {
-      const int c = q >= tot;
-      const int r = (q - c * tot) / n;
-      const int i = q - c * tot - r * n;
-      const int x = x0 + r;
-      a[(ey.row(ey.kslot(i)) << logc) + (r << 1) + c] =
-          x < nx ? in[((size_t)(2 * p + c) * nx + x) * n + i]
-                 : make_float2(0.0f, 0.0f);
-    }
-    __syncthreads();
-    float2* s = ey.inv(a, b, logc, tid, nt);
-    for (int q = tid; q < tot; q += nt) {
-      const int r = q / n;
-      const int i = q - r * n;
-      const int x = x0 + r;
-      if (x >= nx) continue;
-      const int si = (ey.row(i) << logc) + (r << 1);
-      const float2 w0 = cscale(s[si], scale);
-      const float2 w1 = cscale(s[si + 1], scale);
-      vb[q] += nsigma * (w1.x * w0.y - w1.y * w0.x);
-      const size_t o0 = ((size_t)(2 * p) * nx + x) * n + i;
-      if (last) {
-        out[o0] = w0;
-        out[o0 + (size_t)nx * n] = w1;
-        continue;
-      }
-      const size_t ti = (size_t)x * n + i;
-      float2 tv;
-      if (t != nullptr) {
-        tv = t[ti];
-      } else {
-        sincosf(sv[ti], &tv.y, &tv.x);
-      }
-      s[si] = cmul(w0, tv);
-      s[si + 1] = cmul(w1, tv);
-    }
-    if (last) continue;
-    __syncthreads();
-    const float2* o = ey.fwd(s, s == a ? b : a, logc, tid, nt);
-    for (int q = tid; q < 2 * tot; q += nt) {
-      const int c = q >= tot;
-      const int r = (q - c * tot) / n;
-      const int i = q - c * tot - r * n;
-      const int x = x0 + r;
-      if (x < nx) {
-        out[((size_t)(2 * p + c) * nx + x) * n + i] =
-            o[(ey.row(ey.kslot(i)) << logc) + (r << 1) + c];
-      }
-    }
-  }
-  for (int q = tid; q < tot; q += nt) {
-    const int r = q / n;
-    const int x = x0 + r;
-    if (x < nx) vbar[(size_t)x * n + (q - r * n)] = vb[q];
-  }
-}
-
-// Host: the pair tile's rows, 2^logr (at most 4): the most whose FFT
-// buffers stay within 65 KB, and one row when none does.
-template <class E>
-int pair_tile_logr(int n) {
-  int logr = 0;
-  while (logr < 2 && (size_t)E::kBuffers * E::slot_rows(n) * (4 << logr) *
-                             sizeof(float2) <= 66560) {
-    ++logr;
-  }
-  return logr;
-}
-
-// Host: the pair tile's shared memory: its FFT buffers (2^(logr+1) columns
-// each), then 2^logr vbar rows of n floats.
-template <class E>
-size_t pair_tile_bytes(int n, int logr) {
-  return (size_t)E::kBuffers * E::slot_rows(n) * (2 << logr) *
-             sizeof(float2) +
-         ((size_t)n << logr) * sizeof(float);
 }
 
 }  // namespace

@@ -161,7 +161,7 @@ _ARGTYPES = {
     "fs_row_pass_mr": "pppppiiiiiipp",
     "fs_col_pass_mr": "ppppiiiiipp",
     "fs_resident_loop": "ppppppppiiiiiiipp",
-    "fs_row_pass_bwd": "ppppppiiiifp",
+    "fs_row_pass_bwd": "ppppppiiiifipp",
     "fs_row_pass_bwd_mr": "ppppppiiiifiiipp",
 }
 
@@ -323,10 +323,47 @@ def reg_tile_plan(n: int, n_probes: int, lanes: int, bound=COL_BOUND,
                    tiles=n_probes * (lanes >> logc), stages=reg_stages(n))
 
 
+# K7's tiles (csrc/fused_step_adjoint.cu): rows of the pair stream, both
+# members of each, on the same engine; lane 2r + c is member c of row r.
+# Its launch bound, threads and blocks an SM: 384 and 1 (A's 168 registers
+# a thread, blocks of up to 384 threads). PAIR_TILE_THREADS: the block a
+# tile fills where one row's two members take fewer threads (at 1024: 2
+# rows, three blocks an SM). PAIR_VBAR_SLOTS: the float32 vbar
+# accumulators a thread keeps in shared memory.
+PAIR_BOUND = (384, 1)
+PAIR_TILE_THREADS = 128
+PAIR_VBAR_SLOTS = REG_VALUES // 2
+
+
+def pair_reg_plan(n: int, rows: int, factors: bool = True,
+                  sms: int = 132) -> RegPlan:
+    """K7's tile on the (2 pairs, rows, n) pair stream (n = ny, rows = nx,
+    both powers of two from 128 to 4096): 2^logr rows a block, each row's
+    two members on n / REG_VALUES threads apiece, as many rows as fill
+    PAIR_TILE_THREADS (one row above 2048: 256 threads), at most ``rows``;
+    fewer, down to one warp a block, while there would be fewer tiles than
+    the card's ``sms`` (128^2: 4 rows of 32 threads, 32 tiles, not 8 of 16
+    rows). ``logc`` = logr + 1 counts the lanes, member-rows. Shared
+    memory: the tile buffer of the lanes, with ``factors`` (mid mode) the
+    rows' transmission factors, one complex64 an element, and the threads'
+    vbar slots. ``tiles`` is the row tiles the persistent grid walks, each
+    through every pair in order."""
+    per = n // REG_VALUES
+    logr = min(max(0, (PAIR_TILE_THREADS // (2 * per)).bit_length() - 1),
+               rows.bit_length() - 1)
+    while logr > 0 and rows >> logr < sms and 2 * per << logr > 32:
+        logr -= 1
+    threads = 2 * per << logr
+    smem = (reg_smem(n, logr + 1) + (8 * (n << logr) if factors else 0)
+            + 4 * PAIR_VBAR_SLOTS * threads)
+    return RegPlan(logc=logr + 1, threads=threads, smem_bytes=smem,
+                   tiles=rows >> logr, stages=reg_stages(n))
+
+
 # The last launch of each persistent kernel (A, B here; K4, K5 in
-# ops.fused_step_odd; K8 in ops.fused_step_adjoint): its plan and the grid
-# the occupancy query gave (grid, blocks_per_sm, sms, smem_bytes).
-last_launch = {"a": {}, "b": {}, "k4": {}, "k5": {}, "k8": {}}
+# ops.fused_step_odd; K7, K8 in ops.fused_step_adjoint): its plan and the
+# grid the occupancy query gave (grid, blocks_per_sm, sms, smem_bytes).
+last_launch = {"a": {}, "b": {}, "k4": {}, "k5": {}, "k7": {}, "k8": {}}
 
 
 def _record_reg_launch(kernel: str, plan: RegPlan, info) -> None:

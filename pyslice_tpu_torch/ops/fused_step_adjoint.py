@@ -17,7 +17,7 @@ next transmission, exactly where the potential cotangent
 
     vbar_z = -sigma * sum_pairs Im(conj(w1) * w0)
 
-is a product of values in shared memory:
+is a product of values already on the chip:
 
     K7 ``row_pass_bwd``     (csrc/fused_step_adjoint.cu; power-of-two axes)
     K8 ``row_pass_mr_bwd``  (csrc/fused_step_adjoint_odd.cu; mixed radix)
@@ -31,6 +31,13 @@ the result is deterministic (no atomics).
 The conjugated planes are built physically (``torch.conj_physical``, or
 the negated phase -sigma*V): the kernels read ``data_ptr()``, and
 ``fused_step._check_cuda`` refuses lazily conjugated views.
+
+K7 runs on A's register-resident engine (``csrc/fft_regs.cuh``): a block
+holds rows of both members, each thread 32 values of one member's row
+from its load to its store; the two members of a row share a warp, whose
+halves swap values by shuffle for the vbar sum, which each thread keeps
+in its own shared-memory slots. Its tile plan is ``fused_step.pair_reg_plan``, and
+``fused_step.last_launch["k7"]`` holds its last plan and grid.
 
 K8 runs on the persistent producer/consumer tiles of K4 and K5
 (``csrc/tile_async.cuh``): a block walks its row tiles, each through every
@@ -53,14 +60,15 @@ are their conjugates); ``vbar`` is the same in both.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .fused_step import (_check_cuda, _check_state, _into, _out_for,
                          _plain_col_pass, _plain_row_pass, _raise_on,
-                         _transmission, _twiddles, build, col_pass,
-                         fresnel_plane, launches, row_pass, supported_size,
-                         transmission_stack)
+                         _record_reg_launch, _transmission, _twiddles, build,
+                         col_pass, fresnel_plane, launches, pair_reg_plan,
+                         row_pass, supported_size, transmission_stack)
 from .fused_step_odd import (MR_SIZES, col_pass_mr, pair_tile_plan,
                              record_launch, row_pass_mr, supported_size_mr)
 
@@ -98,6 +106,11 @@ def _plain_row_pass_bwd(mode: str, state, t, sigma: float, out=None,
 # --- wrappers --------------------------------------------------------------------
 
 
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _row_pass_bwd(kernel: str, mode: str, state: torch.Tensor, t,
                   sigma: float, out, vbar):
     """Launch K7 (``kernel`` "k7") or K8 ("k8") on a CUDA pair stream, or
@@ -113,18 +126,20 @@ def _row_pass_bwd(kernel: str, mode: str, state: torch.Tensor, t,
     if state.device.type == "cpu":
         return _plain_row_pass_bwd(mode, state, t, sigma, out, vbar)
     two_p, nx, ny = state.shape
+    info = (ctypes.c_int * 4)()
     if kernel == "k7":
         _check_state(state)
         lib, fn, full = (build().libs["fused_step_adjoint"],
                          "fs_row_pass_bwd", False)
-        plan_args = ()
+        plan = pair_reg_plan(ny, nx, factors=mode == "mid",
+                             sms=_sm_count(state.device))
+        plan_args = (plan.logc, ctypes.addressof(info))
     else:
         _check_state(state, lambda n: supported_size_mr(n, state.shape[0]),
                      MR_SIZES)
         lib, fn, full = (build().libs["fused_step_adjoint_odd"],
                          "fs_row_pass_bwd_mr", True)
         plan = pair_tile_plan(ny, nx)
-        info = (ctypes.c_int * 4)()
         plan_args = (plan.logc, plan.threads, int(plan.shared_table),
                      ctypes.addressof(info))
     phase = False
@@ -145,7 +160,9 @@ def _row_pass_bwd(kernel: str, mode: str, state: torch.Tensor, t,
             _twiddles(ny, state.device, full=full).data_ptr(), two_p // 2,
             nx, ny, int(mode == "last"), -float(sigma), *plan_args,
             torch.cuda.current_stream().cuda_stream)
-    if kernel == "k8":
+    if kernel == "k7":
+        _record_reg_launch("k7", plan, info)
+    else:
         record_launch("k8", plan, info)
     _raise_on(err, f"{fn} ({kernel.upper()})")
     launches[kernel] += 1

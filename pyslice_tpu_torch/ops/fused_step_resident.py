@@ -11,7 +11,7 @@ phase, grid barrier, per slice, with the k-space conversion (FFT_x and the
 fftshift) optionally in the same launch. The wave lives in a device
 buffer the wrapper allocates, which stays in the 50 MB L2 at the sizes
 the dispatch sends here. The kernel is templated on the FFT engine: the
-radix-16 engine of kernels A/B/C for power-of-two grids (the JAX kernel
+radix-16 engine of kernel C for power-of-two grids (the JAX kernel
 #5) and the Stockham engine of K4/K5 otherwise (the JAX kernel #8).
 
 ``resident_loop`` takes its plain version (the same phases as plain

@@ -3,10 +3,12 @@
 card, each after holding it to its plain torch.fft version: A and B (the
 power-of-two row and column passes ``row_pass``, ``col_pass``), K4 (the
 mixed-radix row pass ``row_pass_mr``), K5 (the column pass
-``col_pass_mr``), K6 (the resident slice loop ``resident_loop``) and K8
-(the adjoint's backward row pass ``row_pass_mr_bwd``).
+``col_pass_mr``), K6 (the resident slice loop ``resident_loop``), K7 and
+K8 (the adjoint's backward row passes ``row_pass_bwd`` on power-of-two
+axes and ``row_pass_mr_bwd``).
 
-    python3 scripts/time_col_pass_mr.py [--root DIR] [--kernels a b k4 k5 k6 k8]
+    python3 scripts/time_col_pass_mr.py [--root DIR]
+        [--kernels a b k4 k5 k6 k7 k8]
         [--mode mid] [--phase] [--shapes 16x1023 32x1023] [--plain]
         [--shift] [--nz 14] [--reps 20] [--rounds 5]
 
@@ -18,19 +20,19 @@ with another commit, unpack it into a git-ignored directory
 each root in turn: parent, this, this, parent.
 
 A shape PxN is P planes of N^2 for A, B, K4 and K5, P probes of N^2
-through --nz slices for K6, and P pairs (2P planes) of N^2 for K8. --mode
-is A's and K4's mode and K8's (``mid`` or ``last``); in ``mid`` mode A, K4
-and K8 run in place, in the others they write a second buffer (B and K5
-always run in place). --phase hands A, K4 and K8 the transmission as the
-float32 phase sigma*V (cos/sin taken in the kernel) instead of the
-complex plane. --plain times the plain version
-too, in the same rounds (the order reversed every other round), for the
-routing rule of ``fused_step_odd.kernel_preferred_mr``. --shift places
-the wave one
+through --nz slices for K6, and P pairs (2P planes) of N^2 for K7 and
+K8; PxNxM has N rows of M instead of N^2. --mode is A's and K4's mode and
+K7's and K8's (``mid`` or ``last``); in ``mid`` mode A, K4, K7 and K8 run
+in place, in the others they write a second buffer (B and K5 always run
+in place). --phase hands A, K4, K7 and K8 the transmission as the float32
+phase sigma*V (cos/sin taken in the kernel) instead of the complex plane.
+--plain times the plain version too, in the same rounds (the order
+reversed every other round), for the routing rule of
+``fused_step_odd.kernel_preferred_mr``. --shift places the wave one
 complex64 element (8 bytes) past a 16-byte boundary (the 8-byte copy path
-of B and K5 on an even N). Each timing is --rounds rounds of --reps launches
-(CUDA events), and the median round is reported. Prints a line per
-(kernel, shape) and, last, one JSON object.
+of B and K5 on an even N). Each timing is --rounds rounds of --reps
+launches (CUDA events), and the median round is reported. Prints a line
+per (kernel, shape) and, last, one JSON object.
 """
 
 import argparse
@@ -59,12 +61,14 @@ def case(kernel, mode, phase_t, P, n, nz, shift, dev, g):
     from pyslice_tpu_torch.ops import fused_step as fs
     from pyslice_tpu_torch.ops import fused_step_odd as fo
 
-    planes = 2 * P if kernel == "k8" else P
-    store = torch.empty(planes * n * n + 1, dtype=torch.complex64, device=dev)
-    psi = (store[1:] if shift else store[:-1]).view(planes, n, n)
-    psi.copy_(torch.randn((planes, n, n), dtype=torch.complex64, device=dev,
-                          generator=g))
-    phase = torch.rand((n, n), device=dev, generator=g) * (2 * math.pi)
+    nx, ny = n
+    planes = 2 * P if kernel in ("k7", "k8") else P
+    store = torch.empty(planes * nx * ny + 1, dtype=torch.complex64,
+                        device=dev)
+    psi = (store[1:] if shift else store[:-1]).view(planes, nx, ny)
+    psi.copy_(torch.randn((planes, nx, ny), dtype=torch.complex64,
+                          device=dev, generator=g))
+    phase = torch.rand((nx, ny), device=dev, generator=g) * (2 * math.pi)
     plane = torch.polar(torch.ones_like(phase), phase)
     t = phase if phase_t else plane
     out = psi if mode == "mid" else torch.empty_like(psi)
@@ -90,7 +94,7 @@ def case(kernel, mode, phase_t, P, n, nz, shift, dev, g):
                   fs._plain_col_pass(psi, plane), False)])
     if kernel == "k6":
         from pyslice_tpu_torch.ops import fused_step_resident as fr
-        v = torch.randn((nz, n, n), device=dev, generator=g) * 20.0
+        v = torch.randn((nz, nx, ny), device=dev, generator=g) * 20.0
         t = torch.polar(torch.ones_like(v), v)
         return (lambda: fr.resident_loop(psi, t, plane),
                 lambda: fr._plain_resident_loop(psi, t, plane),
@@ -99,13 +103,14 @@ def case(kernel, mode, phase_t, P, n, nz, shift, dev, g):
     from pyslice_tpu_torch.ops import fused_step_adjoint as fa
     sigma = interaction_parameter(100e3)
     if mode not in fa.BWD_MODES:
-        raise SystemExit(f"K8 takes --mode {' or '.join(fa.BWD_MODES)}")
+        raise SystemExit(f"K7 and K8 take --mode "
+                         f"{' or '.join(fa.BWD_MODES)}")
+    row_bwd = fa.row_pass_bwd if kernel == "k7" else fa.row_pass_mr_bwd
     t = None if mode == "last" else t
-    vb = torch.empty((n, n), device=dev)
-    got = fa.row_pass_mr_bwd(mode, psi, t, sigma)
+    vb = torch.empty((nx, ny), device=dev)
+    got = row_bwd(mode, psi, t, sigma)
     want = fa._plain_row_pass_bwd(mode, psi, t, sigma)
-    return (lambda: fa.row_pass_mr_bwd(mode, psi, t, sigma, out=out,
-                                       vbar=vb),
+    return (lambda: row_bwd(mode, psi, t, sigma, out=out, vbar=vb),
             lambda: fa._plain_row_pass_bwd(mode, psi, t, sigma),
             [(got[0], want[0], False), (got[1], want[1], True)])
 
@@ -137,7 +142,7 @@ def main():
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parent.parent)
     ap.add_argument("--kernels", nargs="+", default=["k5"],
-                    choices=["a", "b", "k4", "k5", "k6", "k8"])
+                    choices=["a", "b", "k4", "k5", "k6", "k7", "k8"])
     ap.add_argument("--mode", default="mid",
                     choices=["first", "mid", "last", "only"])
     ap.add_argument("--shapes", nargs="+", default=["16x1023", "32x1023"])
@@ -169,7 +174,8 @@ def main():
     for kernel in args.kernels:
         result[kernel] = {}
         for spec in args.shapes:
-            P, n = (int(x) for x in spec.split("x"))
+            P, *n = (int(x) for x in spec.split("x"))
+            n = (n * 2)[:2]
             run, plain, checks = case(kernel, args.mode, args.phase, P, n,
                                       args.nz, args.shift, dev, g)
             torch.cuda.synchronize()
@@ -195,8 +201,9 @@ def main():
             entry = {"ms": ms, "rounds_ms": ts, "max_rel": errs[0][0],
                      "residual": errs[0][1], "plan": plan}
             form = (f"{args.mode}{' phase' if args.phase else ''} "
-                    if kernel in ("a", "k4", "k8") else "")
-            line = (f"{kernel} {form}at {spec}^2"
+                    if kernel in ("a", "k4", "k7", "k8") else "")
+            line = (f"{kernel} {form}at {spec}"
+                    f"{'^2' if spec.count('x') == 1 else ''}"
                     f"{' shifted' if args.shift else ''}: {ms:.4f} ms")
             if rest:
                 entry["plain_ms"], entry["plain_rounds_ms"] = rest[0]

@@ -352,8 +352,7 @@ def _check_bwd(dev, row_bwd, key, P, nx, ny, mode, phase):
     got = row_bwd(mode, state, t, SIGMA)
     assert fs.launches[key] == n0 + 1
     _bwd_ok(got, fa._plain_row_pass_bwd(mode, state, t, SIGMA))
-    if key == "k8":
-        _grid_ok(fo.last_launch["k8"])
+    _grid_ok(fs.last_launch[key])
     buf = state.clone()
     vb = torch.empty((nx, ny), device=dev)
     out = row_bwd(mode, buf, t, SIGMA, out=buf, vbar=vb)     # in place
@@ -370,6 +369,44 @@ BWD_SHAPES = [(128, 128), (256, 512), (1024, 1024), (4096, 128), (128, 4096)]
                                         ("last", False)])
 def test_row_pass_bwd_matches_plain(dev, shape, P, mode, phase):
     _check_bwd(dev, fa.row_pass_bwd, "k7", P, *shape, mode, phase)
+
+
+# K7 off the main path: 2048 and 4096 rows (one row a block, 128 and 256
+# threads; 16 pairs x 2048^2 and 4 x 4096^2 are 1 GiB pair streams), and
+# pair counts that are no power of two at 1024^2.
+K7_CASES = [(16, 2048, 2048), (4, 4096, 4096), (3, 1024, 1024),
+            (5, 1024, 1024)]
+
+
+@pytest.mark.parametrize("P,nx,ny", K7_CASES)
+@pytest.mark.parametrize("mode,phase", [("mid", False), ("mid", True),
+                                        ("last", False)])
+def test_row_pass_bwd_large_rows_and_odd_pair_counts(dev, P, nx, ny, mode,
+                                                     phase):
+    _check_bwd(dev, fa.row_pass_bwd, "k7", P, nx, ny, mode, phase)
+    run = fs.last_launch["k7"]
+    plan = fs.pair_reg_plan(
+        ny, nx, factors=mode == "mid",
+        sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert (run["lanes"], run["threads"], run["tiles"], run["smem_bytes"]) == (
+        plan.lanes, plan.threads, plan.tiles, plan.smem_bytes)
+    assert run["blocks_per_sm"] >= fs.PAIR_BOUND[1]
+
+
+@pytest.mark.parametrize("shape", [(1024, 1024), (4096, 128), (128, 4096)])
+@pytest.mark.parametrize("mode,phase", [("mid", False), ("mid", True),
+                                        ("last", False)])
+def test_row_pass_bwd_is_bit_identical(dev, shape, mode, phase):
+    """Two launches of K7 on the same inputs give the same bits, the pair
+    stream and vbar: each vbar element has one owner thread, which sums it
+    in pair order without atomics."""
+    state = _wave(dev, 2 * 16, *shape)
+    t = None if mode == "last" else _t_form(dev, *shape, phase)
+    first = fa.row_pass_bwd(mode, state, t, SIGMA)
+    second = fa.row_pass_bwd(mode, state, t, SIGMA)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
 
 
 @pytest.mark.parametrize("n", MR_SIZES)

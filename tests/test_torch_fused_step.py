@@ -206,6 +206,55 @@ def test_reg_tile_plan(n, other, kernel):
     assert all(32 % r == 0 for r in plan.stages)
 
 
+@pytest.mark.parametrize("n", POW2_AXES)
+@pytest.mark.parametrize("rows", [128, 1024, 4096])
+@pytest.mark.parametrize("mode", ["mid", "last"])
+def test_pair_reg_plan(n, rows, mode):
+    """K7's plan at every pow2 row length against every row count: 2^logr
+    rows a block that divide the rows, both members of each on n / 32
+    threads (whole warps, within PAIR_BOUND's threads), the blocks an SM
+    that the bound promises within an SM's shared memory, a tile buffer for
+    every member-row plus (mid) a complex64 factor an element of its rows,
+    16 float32 vbar slots a thread, one tile a row group, at least as many
+    tiles as an H100 has SMs where a block can lose rows, and the stages of
+    reg_geo."""
+    plan = tfs.pair_reg_plan(n, rows, factors=mode == "mid")
+    r = plan.lanes // 2
+    assert plan.lanes == 2 * r and rows % r == 0
+    assert plan.threads == (n // tfs.REG_VALUES) * 2 * r
+    assert plan.threads % 32 == 0 and plan.threads <= tfs.PAIR_BOUND[0]
+    blocks = tfs.PAIR_BOUND[0] * tfs.PAIR_BOUND[1] // plan.threads
+    assert blocks >= tfs.PAIR_BOUND[1]
+    assert plan.smem_bytes == (tfs.reg_smem(n, plan.logc)
+                               + (8 * n * r if mode == "mid" else 0)
+                               + 4 * 16 * plan.threads)
+    assert blocks * (plan.smem_bytes + tfs.SMEM_BLOCK_RESERVED) <= tfs.SMEM_SM
+    assert plan.smem_bytes <= 227 * 1024
+    assert plan.tiles == rows // r
+    assert plan.tiles >= 132 or r == 1 or plan.threads == 32
+    assert int(np.prod(plan.stages)) == n and plan.stages[0] == 32
+
+
+def test_pair_reg_plan_at_1024():
+    """The main path's K7 tile at 1024^2: 2 rows x 2 members, 128 threads,
+    512 row tiles; 33,792 bytes of tile buffer, 16,384 of factors and 8,192
+    of vbar slots, three blocks an SM; one row of 256 threads at 4096, 16
+    rows at 128 (4 rows of 32 threads at 128^2, so that its 32 tiles
+    spread over 32 SMs)."""
+    plan = tfs.pair_reg_plan(1024, 1024)
+    assert (plan.lanes, plan.threads, plan.smem_bytes, plan.tiles,
+            plan.stages) == (4, 128, 33792 + 16384 + 8192, 512, (32, 32))
+    assert tfs.pair_reg_plan(1024, 1024, factors=False).smem_bytes == (
+        33792 + 8192)
+    wide = tfs.pair_reg_plan(4096, 4096)
+    assert (wide.lanes, wide.threads, wide.tiles) == (2, 256, 4096)
+    narrow = tfs.pair_reg_plan(128, 4096)
+    assert (narrow.lanes, narrow.threads, narrow.tiles) == (32, 128, 256)
+    small = tfs.pair_reg_plan(128, 128)
+    assert (small.lanes, small.threads, small.tiles) == (8, 32, 32)
+    assert tfs.pair_reg_plan(128, 128, sms=8).tiles == 8
+
+
 def test_reg_tile_plan_at_1024():
     """The main path's plans at 16 x 1024^2: B 16 lanes of 32 threads, a
     135,168-byte tile buffer, one block an SM; A 4 lanes, 33,792 bytes
