@@ -15,8 +15,11 @@ Phases, each printing one line (or a few) and failing hard:
 4. the mixed-radix kernels the same way: K4 (every mode) and K5 at
    16 x 1023^2, each with its tile plan and persistent grid (K5 also at
    32 planes, the adjoint's pair stream), K6 (the resident slice loop) at
-   1 x 1023^2 and 1 x 1024^2, exit wave and k space, and one
-   depth-recording chain each;
+   1 x 1023^2 and 1 x 1024^2 x 14 slices (its mixed-radix and its
+   power-of-two instantiation), exit wave and k space with the complex t
+   stack and the phase stack, each with its plan and grid, two launches
+   the same bits, one depth-recording chain each, and its barrier floor
+   (the launch's grid barriers alone);
 5. STEM at 1024^2: an hBN monolayer filling a 102.35 A box (3,680 atoms,
    10 thermal frames) through MultisliceCalculator(device="cuda") at
    16 probes x 14 slices; A/B/C launch counts, the plain-path residual on
@@ -26,7 +29,7 @@ Phases, each printing one line (or a few) and failing hard:
    TrajectoryLoader, a plane wave (aperture=0.0) at 1023^2: one K6 launch
    a frame and no other kernel, the plain-path residual on frame 0, TACAW
    spectrum and diffraction; ms/frame for K6, the K4/K5 chain and plain;
-7. the same with fast_grid=True (1024^2, 10 frames): K6's radix-16
+7. the same with fast_grid=True (1024^2, 10 frames): K6's power-of-two
    instantiation; ms/frame for K6, the A/B/C chain and plain;
 8. 16-probe STEM on the 1023^2 box (10 frames): K4 and K5 launch nz and
    nz - 1 times a frame, HAADF finite and positive;
@@ -85,7 +88,7 @@ KERNELS = {
     "k6_mixed": ("fused_step_resident.resident_loop (K6, mixed-radix)",
                  "resident.cu",
                  "pyslice_tpu/ops/fused_step_odd_resident.py:369"),
-    "k6_pow2": ("fused_step_resident.resident_loop (K6, radix-16)",
+    "k6_pow2": ("fused_step_resident.resident_loop (K6, power-of-two)",
                 "resident.cu", "pyslice_tpu/ops/fused_step_resident.py:250"),
     "k7": ("fused_step_adjoint.row_pass_bwd (K7)", "fused_step_adjoint.cu",
            "pyslice_tpu/ops/fused_step_adjoint.py:148"),
@@ -316,7 +319,7 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES):
           fs.fused_multislice_plain(psi, v, kxs, kxs, **kw))
     del v
 
-    loops = {}
+    loops, k6_plans = {}, {}
     for key, m, entry in (("k6_mixed", n, fodr.fused_multislice_odd_resident),
                            ("k6_pow2", 1024, fr.fused_multislice_resident)):
         ks = np.fft.fftfreq(m, 0.1)
@@ -325,12 +328,18 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES):
         v = torch.randn((nz, m, m), device=dev, generator=g) * 50.0
         tstack = fs.transmission_stack(sigma, v)
         pm = fs.fresnel_plane(ks, ks, lam, 0.4846, device=dev)
-        for kspace in (False, True):
-            errs[key] = max(errs[key], check(
-                f"K6 1x{m}^2x{nz} kspace={kspace!s:5s}",
-                fr.resident_loop(p1, tstack, pm, kspace),
-                fr._plain_resident_loop(p1, tstack, pm, kspace)))
-        print(f"    K6 grid {fr.last_launch}")
+        for label, tt in (("t stack", tstack), ("phase", sigma * v)):
+            for kspace in (False, True):
+                errs[key] = max(errs[key], check(
+                    f"K6 1x{m}^2x{nz} {label:7s} kspace={kspace!s:5s}",
+                    fr.resident_loop(p1, tt, pm, kspace),
+                    fr._plain_resident_loop(p1, tt, pm, kspace)))
+        again = fr.resident_loop(p1, tstack, pm, True)
+        require(torch.equal(again, fr.resident_loop(p1, tstack, pm, True)),
+                f"K6 at 1x{m}^2: two launches differ")
+        k6_plans[key] = dict(fr.last_launch)
+        print(f"    K6 plan and grid at 1x{m}^2 (two launches the same "
+              f"bits): {k6_plans[key]}")
         check(f"K6 1x{m}^2 record_layers=(3, {nz - 1})",
               entry(p1, v, ks, ks, **kw),
               fs.fused_multislice_plain(p1, v, ks, ks, **kw))
@@ -361,11 +370,17 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES):
           f"{k5_pairs['plain_ms']:.4f} ms, bound {k5_pairs['bound_ms']:.4f} "
           f"ms; plan and grid {fo.last_launch['k5']}")
     del buf
+    barrier_ms = {}
     for key, (p1, tstack, pm) in loops.items():
         timings[key] = (
             cuda_ms(lambda: fr.resident_loop(p1, tstack, pm), reps=10),
             cuda_ms(lambda: fr._plain_resident_loop(p1, tstack, pm),
                     reps=10))
+        fr.resident_loop(p1, tstack, pm)     # the launch the floor repeats
+        barrier_ms[key] = cuda_ms(fr.barrier_floor, reps=10)
+        print(f"  K6 barrier floor at 1x{p1.shape[1]}^2x{nz}: "
+              f"{barrier_ms[key]:.4f} ms ({2 * nz - 2} grid barriers, "
+              f"grid {fr.last_launch['grid']} x {fr.last_launch['threads']})")
     bounds = {"k4": kernel_bound("pass", P, n), "k5": kernel_bound("pass", P, n),
               "k6_mixed": kernel_bound("resident", 1, n, nz),
               "k6_pow2": kernel_bound("resident", 1, 1024, nz)}
@@ -380,6 +395,8 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES):
     records.update(records_for(
         {"k6_pow2": errs["k6_pow2"]}, timings, bounds,
         f"1x1024^2x{nz} slices"))
+    for key in loops:
+        records[key].update(plan=k6_plans[key], barrier_ms=barrier_ms[key])
     return records
 
 
@@ -551,7 +568,7 @@ def quick_start_phase(dev, card, tmp, n_frames=QUICK_FRAMES, lx=102.25,
     want["k6"] = n_frames
     wf, counts, run_s = counted_run(calc, want)
     engine = "pow2" if fast_grid else "mixed"
-    print(f"  K6 grid {fr.last_launch}")
+    print(f"  K6 plan and grid {fr.last_launch}")
     require(fr.last_launch["engine"] == engine, f"K6 ran not the {engine} "
             "engine")
     w = wf.wavefunction_data

@@ -25,10 +25,12 @@ Kernel map (``pyslice_tpu/ops`` Pallas kernel -> this package):
   ``csrc/tile_async.cuh``). Dispatch gives them, K6 and K8 only axes whose
   stages all run in registers (``fused_step_odd.kernel_preferred_mr``).
 * ``fused_step_resident._kernel_resident`` (#5) and
-  ``fused_step_odd_resident._kernel`` (#8) -> one kernel, K6,
-  ``fused_step_resident.resident_loop`` in ``csrc/resident.cu``, templated
-  on the engine: radix-16 for power-of-two grids (#5), Stockham otherwise
-  (#8). Entry points:
+  ``fused_step_odd_resident._kernel`` (#8) -> K6,
+  ``fused_step_resident.resident_loop`` in ``csrc/resident.cu``, one
+  cooperative launch a frame in two instantiations: A's and B's register
+  engine on power-of-two grids (#5), K4's and K5's persistent tiles
+  otherwise (#8); ``fused_step_resident.resident_plan`` sizes it. Entry
+  points:
   ``fused_step_resident.fused_multislice[_kspace]_resident`` and
   ``fused_step_odd_resident.fused_multislice[_kspace]_odd_resident``.
 * ``fused_step_adjoint._kernel_a_bwd`` (#9) and ``_kernel_a_bwd_odd``

@@ -1,47 +1,21 @@
-// The power-of-two FFT engine in shared memory: kernel C (fused_step.cu)
-// and the resident slice loop's radix-16 instantiation K6 (resident.cu,
-// through tiles.cuh). A, B and K7 keep their transforms in registers
-// (fft_regs.cuh) and take only this header's complex helpers and row
-// modes.
+// The power-of-two FFT engine in shared memory of kernel C (fused_step.cu)
+// alone. A, B, K7 and K6's power-of-two instantiation keep their
+// transforms in registers (fft_regs.cuh).
 //
-// Each 1-D transform is an in-place FFT in shared memory, run as passes of
-// up to four radix-2 stages held in registers (radix 16: a 1024-point
-// transform is three passes and barriers): the forward is decimation in
-// frequency (natural in, bit-reversed out) and the inverse decimation in
-// time (bit-reversed in, natural out). A tile holds 2^logc columns side by
-// side, element (i, c) at s[(pad(i) << logc) + c]; rows are padded by one
-// slot every 32, so the passes' strided accesses spread over the banks.
-// Twiddles exp(-2 pi i m / n), m < n/2, are computed in float64 on the host
-// and read as float32 from device memory.
+// C's forward is an in-place FFT in shared memory, run as passes of up to
+// four radix-2 stages held in registers (radix 16: a 1024-point transform
+// is three passes and barriers), decimation in frequency (natural in,
+// bit-reversed out). A tile holds 2^logc columns side by side, element
+// (i, c) at s[(pad(i) << logc) + c]; rows are padded by one slot every 32,
+// so the passes' strided accesses spread over the banks. Twiddles
+// exp(-2 pi i m / n), m < n/2, are computed in float64 on the host and
+// read as float32 from device memory.
 
 #pragma once
 
-#include <cuda_runtime.h>
+#include "complex.cuh"
 
 namespace {
-
-enum RowMode { kFirst = 0, kMid = 1, kLast = 2, kOnly = 3 };
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// a * conj(b)
-__device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
-  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
-}
-
-__device__ __forceinline__ float2 cscale(float2 a, float s) {
-  return make_float2(a.x * s, a.y * s);
-}
 
 __device__ __forceinline__ int bit_reverse(int i, int logn) {
   return logn == 0 ? 0 : (int)(__brev((unsigned)i) >> (32 - logn));
@@ -53,12 +27,11 @@ __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
 
 // Up to kMaxLogRadix consecutive radix-2 stages in registers. Work item b
 // (column c = b mod 2^logc, group g) holds the R = 2^LR tile rows
-// e0 + j*2^lo, j < R, runs stages lo .. lo+LR-1 on them (largest first for
-// the forward, DIF; smallest first for the inverse, DIT) and writes them
-// back in place: one shared-memory round trip for LR stages. Stage st pairs
-// rows i and i + 2^st; its twiddle is tw[(i mod 2^st) << (logn-1-st)],
-// conjugated for the inverse. The caller syncs between passes.
-template <int LR, bool kInverse>
+// e0 + j*2^lo, j < R, runs stages lo + LR - 1 down to lo on them (DIF) and
+// writes them back in place: one shared-memory round trip for LR stages.
+// Stage st pairs rows i and i + 2^st; its twiddle is
+// tw[(i mod 2^st) << (logn-1-st)]. The caller syncs between passes.
+template <int LR>
 __device__ __forceinline__ void fft_pass(float2* s, int logn, int logc,
                                          int lo,
                                          const float2* __restrict__ tw,
@@ -76,7 +49,7 @@ __device__ __forceinline__ void fft_pass(float2* s, int logn, int logc,
     for (int j = 0; j < R; ++j) v[j] = s[(pad(e0 + (j << lo)) << logc) + c];
 #pragma unroll
     for (int tt = 0; tt < LR; ++tt) {
-      const int t = kInverse ? tt : LR - 1 - tt;
+      const int t = LR - 1 - tt;
       const int st = lo + t;
       const int hl = 1 << t;
 #pragma unroll
@@ -86,14 +59,8 @@ __device__ __forceinline__ void fft_pass(float2* s, int logn, int logc,
             __ldg(&tw[(k + ((j & (hl - 1)) << lo)) << (logn - 1 - st)]);
         const float2 a = v[j];
         const float2 u = v[j + hl];
-        if (kInverse) {
-          const float2 uw = cmul_conj(u, w);
-          v[j] = cadd(a, uw);
-          v[j + hl] = csub(a, uw);
-        } else {
-          v[j] = cadd(a, u);
-          v[j + hl] = cmul(csub(a, u), w);
-        }
+        v[j] = cadd(a, u);
+        v[j + hl] = cmul(csub(a, u), w);
       }
     }
 #pragma unroll
@@ -109,16 +76,15 @@ constexpr int kMaxLogRadix = 4;
 
 // fft_pass<lr> for a run-time lr <= LRMAX; only radices up to LRMAX are
 // compiled, so the largest one sets the kernels' register count.
-template <int LRMAX, bool kInverse>
+template <int LRMAX>
 __device__ __forceinline__ void fft_pass_lr(int lr, float2* s, int logn,
                                             int logc, int lo,
                                             const float2* __restrict__ tw,
                                             int tid, int nthreads) {
   if (lr == LRMAX) {
-    fft_pass<LRMAX, kInverse>(s, logn, logc, lo, tw, tid, nthreads);
+    fft_pass<LRMAX>(s, logn, logc, lo, tw, tid, nthreads);
   } else if constexpr (LRMAX > 1) {
-    fft_pass_lr<LRMAX - 1, kInverse>(lr, s, logn, logc, lo, tw, tid,
-                                     nthreads);
+    fft_pass_lr<LRMAX - 1>(lr, s, logn, logc, lo, tw, tid, nthreads);
   }
 }
 
@@ -131,50 +97,11 @@ __device__ void fft_dif(float2* s, int logn, int logc,
                         int nthreads) {
   for (int hi = logn - 1; hi >= 0; hi -= kMaxLogRadix) {
     const int lr = hi + 1 < kMaxLogRadix ? hi + 1 : kMaxLogRadix;
-    fft_pass_lr<kMaxLogRadix, false>(lr, s, logn, logc, hi - lr + 1, tw,
-                                     tid, nthreads);
+    fft_pass_lr<kMaxLogRadix>(lr, s, logn, logc, hi - lr + 1, tw, tid,
+                              nthreads);
     __syncthreads();
   }
 }
-
-// Inverse FFT (unnormalized) on the same tile layout: bit-reversed order
-// in, natural out (decimation in time). Ends with __syncthreads().
-__device__ void ifft_dit(float2* s, int logn, int logc,
-                         const float2* __restrict__ tw, int tid,
-                         int nthreads) {
-  for (int lo = 0; lo < logn; lo += kMaxLogRadix) {
-    const int lr = logn - lo < kMaxLogRadix ? logn - lo : kMaxLogRadix;
-    fft_pass_lr<kMaxLogRadix, true>(lr, s, logn, logc, lo, tw, tid,
-                                    nthreads);
-    __syncthreads();
-  }
-}
-
-// The engine as the tile functions of tiles.cuh see it: slot row of
-// element i, slot row of frequency k after the forward (bit-reversed), and
-// the two transforms, in place (the second buffer is not used). Host side:
-// the buffers a tile needs and the slot rows of each (pad slots included).
-struct Pow2Eng {
-  static constexpr int kBuffers = 1;
-  static int slot_rows(int n) { return n + (n >> 5); }
-  const float2* tw;   // exp(-2 pi i m / n), m < n/2
-  int n;
-  int logn;
-  __device__ __forceinline__ int row(int i) const { return pad(i); }
-  __device__ __forceinline__ int kslot(int k) const {
-    return bit_reverse(k, logn);
-  }
-  __device__ __forceinline__ float2* fwd(float2* a, float2*, int logc,
-                                         int tid, int nt) const {
-    fft_dif(a, logn, logc, tw, tid, nt);
-    return a;
-  }
-  __device__ __forceinline__ float2* inv(float2* a, float2*, int logc,
-                                         int tid, int nt) const {
-    ifft_dit(a, logn, logc, tw, tid, nt);
-    return a;
-  }
-};
 
 inline int ilog2(int n) {
   int l = 0;

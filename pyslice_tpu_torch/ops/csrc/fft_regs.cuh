@@ -1,7 +1,8 @@
-// The register-resident FFT engine of kernels A and B (fused_step.cu) and
-// K7 (fused_step_adjoint.cu): a power-of-two transform of n = 128 .. 4096
-// values on T = n / 32 threads, each holding 32 of them in registers from
-// the load to the store.
+// The register-resident FFT engine of kernels A and B (fused_step.cu), K7
+// (fused_step_adjoint.cu) and K6's power-of-two instantiation
+// (resident.cu): a power-of-two transform of n = 128 .. 4096 values on
+// T = n / 32 threads, each holding 32 of them in registers from the load
+// to the store.
 //
 // Thread t of a transform holds element t + T m of it in v[m], m < 32: the
 // load, the store and the pass's products all read or write the wave

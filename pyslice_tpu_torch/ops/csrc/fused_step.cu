@@ -42,6 +42,7 @@
 // Plain C interface for ctypes: each function launches on the given stream
 // and returns cudaGetLastError() as an int.
 
+#include "fft_pow2.cuh"
 #include "fft_regs.cuh"
 
 namespace {

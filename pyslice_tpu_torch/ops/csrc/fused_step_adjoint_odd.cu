@@ -18,8 +18,8 @@
 // What bounds it on an H100: the pair stream in and out once and one t
 // plane, 548 MB or 0.164 ms at 3.35 TB/s for 16 pairs x 1023^2 (data
 // sheet), against which the design before this one took 0.96 ms (PERF.md):
-// one block a tile, synchronous loads fenced by barriers, the sk_pass
-// stages with their per-thread constants (112/304 bytes of spills).
+// one block a tile, synchronous loads fenced by barriers, Stockham stages
+// with their DFT constants in per-thread arrays (112/304 bytes of spills).
 //
 // The design is K4's and K5's (tile_async.cuh): persistent blocks whose
 // three producer warps store the previous result and copy the next item

@@ -1,29 +1,29 @@
 // The tiles of the persistent mixed-radix passes K4 (the row pass) and K5
-// (the column pass) of fused_step_odd.cu and K8 (the adjoint's backward
-// row pass) of fused_step_adjoint_odd.cu: their stage routine, the copies
-// of a tile between device memory and shared memory that their producer
-// warps run (cp.async in, plain stores out) while their consumer warps
-// transform, each pass's transform of one tile (row_tile_compute,
+// (the column pass) of fused_step_odd.cu, K8 (the adjoint's backward row
+// pass) of fused_step_adjoint_odd.cu and the mixed-radix instantiation of
+// K6 (the resident slice loop) of resident.cu: their stage routine, the
+// copies of a tile between device memory and shared memory that their
+// producer warps run (cp.async in, plain stores out) while their consumer
+// warps transform, each pass's transform of one tile (row_tile_compute,
 // col_tile_compute, pair_tile_compute), and the persistent walk and launch
-// sizing the three share (persistent_tiles, persistent_grid, plan_ok). K6
-// keeps the tile functions of tiles.cuh and the stage routine sk_pass of
-// fft_mixed.cuh; A, B and K7 run the register engine of fft_regs.cuh,
-// which takes persistent_grid and the DFT helpers from here.
+// sizing they share (persistent_tiles, persistent_grid, plan_ok). A, B, K7
+// and K6's power-of-two instantiation run the register engine of
+// fft_regs.cuh, which takes persistent_grid and the DFT helpers from here.
 //
-// Layout as in tiles.cuh: a tile holds 2^logc lanes side by side (K5: the
-// wave's columns; K4: its rows; K8: its rows' pair members, lane 2r + c
-// member c of row r), element (i, c) at s[(i << logc) + c], natural order
-// on both sides of each transform (the Stockham engine).
+// Layout: a tile holds 2^logc lanes side by side (K5: the wave's columns;
+// K4: its rows; K8: its rows' pair members, lane 2r + c member c of row
+// r), element (i, c) at s[(i << logc) + c], natural order on both sides of
+// each transform (the Stockham order).
 //
-// tile_pass is sk_pass with two changes: the R-point DFT's constants
-// cos/sin(2 pi m / R) come from a __constant__ table at indices that are
-// compile-time constants once the loops are unrolled, so they are
-// constant-bank operands of the multiply-adds and take no registers
-// (sk_pass holds them in a per-thread array, 16 float2 for R = 31); and an
-// operand (TileProp for K5, RowT for K4) may multiply each value as it is
-// loaded. The table is computed in float64 at compile time and rounded to
-// float32, as the twiddle table is on the host. The stages, their order,
-// the twiddle table and the 1/n scale are those of fft_mixed.cuh.
+// tile_pass runs one Stockham stage of radix R with the item's R values
+// in registers: the R-point DFT's constants cos/sin(2 pi m / R) come from
+// a __constant__ table at indices that are compile-time constants once
+// the loops are unrolled, so they are constant-bank operands of the
+// multiply-adds and take no registers; and an operand (TileProp for K5,
+// RowT for K4) may multiply each value as it is loaded. The table is
+// computed in float64 at compile time and rounded to float32, as the
+// twiddle table is on the host. The stage order, the twiddle table and
+// the 1/n scale are those of fft_mixed.cuh.
 
 #pragma once
 
@@ -134,9 +134,9 @@ struct RowT {
   }
 };
 
-// One Stockham stage of radix R, R values of an item in registers: the
-// work of sk_pass (fft_mixed.cuh), with the DFT constants from k_dft and
-// the stage twiddles from `tws`, the block's copy of the twiddle table in
+// One Stockham stage of radix R, R values of an item in registers (see
+// fft_mixed.cuh for the stage), with the DFT constants from k_dft and the
+// stage twiddles from `tws`, the block's copy of the twiddle table in
 // shared memory (in L1 the streaming tile copies would evict it). With an
 // active operand each value read is multiplied by m.at(i, c) as it is
 // loaded: the pass's product, with no pass of its own.
@@ -194,7 +194,7 @@ __device__ void tile_pass(const float2* __restrict__ in,
         out[((base + q * ns) << logc) + c] = v[brev(q, R)];
       }
     } else {
-      // The symmetric odd-radix form of sk_pass: with a_r = v_r + v_(R-r),
+      // The symmetric odd-radix form: with a_r = v_r + v_(R-r),
       // b_r = v_r - v_(R-r), y_q = A_q -/+ i B_q and y_(R-q) = A_q +/- i B_q,
       // A_q = v_0 + sum_r a_r cos(2 pi qr/R), B_q = sum_r b_r sin(2 pi qr/R).
       constexpr int H = (R - 1) / 2;
@@ -304,12 +304,41 @@ __device__ __forceinline__ void bar_sync_last(int nt) {
   asm volatile("bar.sync 2, %0;\n" ::"r"(nt) : "memory");
 }
 
-// A column tile's copies (K5): columns y0 .. y0 + 2^logc - 1 of probe p,
-// in shared memory at s (element (i, c) at s[(i << logc) + c]). vec16: 16
-// bytes a copy (column pairs), for an even ny and 16-byte aligned tensors
-// (every row's segment then starts 16-byte aligned); 8 bytes otherwise (an
-// odd ny puts every other row's segment 8 bytes off).
-struct TileCopy {
+// The 8-byte copies of a tile that another block may have written since
+// this kernel began (K6's state, between two of its grid barriers): slot q
+// of s < tot from src(q), zero where src(q) is null. cp.async.ca would
+// fill through L1, which may hold the slot's address from an earlier
+// phase, so these are loads through L2 (ld.global.cg) into registers and
+// stores to shared memory, kU loads a thread in flight before the first
+// store. Synchronous, so the caller needs no commit or wait.
+template <class Src>
+__device__ __forceinline__ void l2_copy8(float2* s, int tot, int tid, int nt,
+                                         Src src) {
+  constexpr int kU = 16;
+  for (int q0 = tid; q0 < tot; q0 += kU * nt) {
+    float2 v[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int q = q0 + u * nt;
+      const float2* g = q < tot ? src(q) : nullptr;
+      v[u] = g != nullptr ? __ldcg(g) : make_float2(0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int q = q0 + u * nt;
+      if (q < tot) s[q] = v[u];
+    }
+  }
+}
+
+// A column tile's copies (K5, K6): columns y0 .. y0 + 2^logc - 1 of probe
+// p, in shared memory at s (element (i, c) at s[(i << logc) + c]). vec16:
+// 16 bytes a copy (column pairs, cp.async.cg, through L2), for an even ny
+// and 16-byte aligned tensors (every row's segment then starts 16-byte
+// aligned); 8 bytes otherwise (an odd ny puts every other row's segment 8
+// bytes off): cp.async.ca, or with kL2 l2_copy8.
+template <bool kL2 = false>
+struct TileCopyT {
   float2* s;
   const float2* in;
   int n;
@@ -326,6 +355,13 @@ struct TileCopy {
     const int lu = vec16 ? logc - 1 : logc;     // copy units a row, log2
     const int umask = (1 << lu) - 1;
     const int tot = n << lu;
+    if (kL2 && !vec16) {
+      l2_copy8(s, tot, tid, nt, [&](int q) -> const float2* {
+        const int c = q & umask;
+        return y0 + c < ny ? src + (size_t)(q >> lu) * ny + c : nullptr;
+      });
+      return;
+    }
     for (int q = tid; q < tot; q += nt) {
       const int c = (q & umask) << (vec16 ? 1 : 0);
       const bool ok = y0 + c < ny;     // ny even: y0 + c + 1 < ny too
@@ -358,6 +394,8 @@ struct TileCopy {
   }
 };
 
+using TileCopy = TileCopyT<false>;
+
 // A row tile's copies (rows of n elements). K4's (kPair 0): rows x0 .. x0
 // + 2^logc - 1 of probe p, lane c row x0 + c. K8's (kPair 1): rows x0 ..
 // x0 + 2^(logc-1) - 1 of pair p of the (2 P, nx, n) stream, lane c member
@@ -366,8 +404,8 @@ struct TileCopy {
 // Slot q holds lane q mod 2^logc, so a warp's 32 copies fill 32
 // neighbouring slots and read 32 / 2^logc elements of each of the tile's
 // lanes. 8 bytes a copy: a lane's neighbouring elements sit 2^logc slots
-// apart.
-template <int kPair>
+// apart: cp.async.ca, or with kL2 l2_copy8.
+template <int kPair, bool kL2 = false>
 struct RowTileCopy {
   float2* s;
   const float2* in;
@@ -388,6 +426,13 @@ struct RowTileCopy {
   __device__ void issue(int tid, int nt) const {
     const int cmask = (1 << logc) - 1;
     const int tot = n << logc;
+    if constexpr (kL2) {
+      l2_copy8(s, tot, tid, nt, [&](int q) -> const float2* {
+        const int c = q & cmask;
+        return x0 + (c >> kPair) < nx ? in + row(c) + (q >> logc) : nullptr;
+      });
+      return;
+    }
     for (int q = tid; q < tot; q += nt) {
       const int c = q & cmask;
       const bool ok = x0 + (c >> kPair) < nx;
@@ -467,6 +512,31 @@ __device__ void tile_transform(const MixedEng& e, float2*& a, float2*& b,
   }
 }
 
+// The product of every value of the tile in `a` with m.at(i, c), a pass of
+// its own on the first nt threads: kU factors a thread are loaded before
+// it multiplies, so that their loads overlap. Ends with bar_sync_first(nt).
+template <class Op>
+__device__ void product_pass(float2* a, const Op& m, int n, int logc, int tid,
+                             int nt) {
+  constexpr int kU = 8;
+  const int cmask = (1 << logc) - 1;
+  const int tot = n << logc;
+  for (int q0 = tid; q0 < tot; q0 += kU * nt) {
+    float2 f[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int q = min(q0 + u * nt, tot - 1);
+      f[u] = m.at(q >> logc, q & cmask);
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int q = q0 + u * nt;
+      if (q < tot) a[q] = cmul(a[q], f[u]);
+    }
+  }
+  bar_sync_first(nt);
+}
+
 // K4's transform of the tile whose copies have landed in `cur` (`spare`
 // the second buffer, `tws` the twiddle table in shared memory), on the
 // first nt threads, by mode:
@@ -491,26 +561,7 @@ __device__ void row_tile_compute(const MixedEng& ey, float2* cur,
   if (mode == kMid || mode == kLast) {
     tile_transform<true>(ey, a, b, tws, NoOp{}, logc, tid, nt);
   }
-  if (kPhase || !fwd) {
-    // kU factors a thread before it multiplies, so that their loads overlap
-    constexpr int kU = 8;
-    const int cmask = (1 << logc) - 1;
-    const int tot = ey.n << logc;
-    for (int q0 = tid; q0 < tot; q0 += kU * nt) {
-      float2 f[kU];
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const int q = min(q0 + u * nt, tot - 1);
-        f[u] = m.at(q >> logc, q & cmask);
-      }
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const int q = q0 + u * nt;
-        if (q < tot) a[q] = cmul(a[q], f[u]);
-      }
-    }
-    bar_sync_first(nt);
-  }
+  if (kPhase || !fwd) product_pass(a, m, ey.n, logc, tid, nt);
   if (!fwd) return;
   if constexpr (kPhase) {
     tile_transform<false>(ey, a, b, tws, NoOp{}, logc, tid, nt);
@@ -623,7 +674,9 @@ constexpr int kBuffers = 3;
 // a block-wide barrier an item hands the buffers over. The transform ends
 // in `cur`, or in `spare` after an odd count of stages (`odd`), and that
 // buffer becomes the next item's `next`. tile(s, v) is item v's copy
-// (TileCopy, RowTileCopy) in buffer s.
+// (TileCopy, RowTileCopy) in buffer s. Every block of the grid has a unit
+// (K6, whose grid fits the larger of its phases, calls it only on blocks
+// that have one).
 template <class Tile, class Compute>
 __device__ void persistent_tiles(float2* smem, size_t slots, int n_units,
                                  int per, bool odd, float2* out, Tile tile,

@@ -160,7 +160,8 @@ _ARGTYPES = {
     "fs_kconvert": "pppiiip",
     "fs_row_pass_mr": "pppppiiiiiipp",
     "fs_col_pass_mr": "ppppiiiiipp",
-    "fs_resident_loop": "ppppppppiiiiiiipp",
+    "fs_resident_loop": "ppppppppiiiiiiiiiipp",
+    "fs_resident_barriers": "iiiip",
     "fs_row_pass_bwd": "ppppppiiiifipp",
     "fs_row_pass_bwd_mr": "ppppppiiiifiiipp",
 }

@@ -1,5 +1,5 @@
-"""The resident slice loop on odd and mixed-radix grids (K6, Stockham
-engine).
+"""The resident slice loop on odd and mixed-radix grids (K6 on the
+persistent mixed-radix tiles).
 
 Counterpart of ``pyslice_tpu/ops/fused_step_odd_resident.py``: the
 reference's own production shape, one plane-wave probe on an

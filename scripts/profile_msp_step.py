@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Profile warm multislice-ptychography steps, or warm STEM frames, of a
-checkout's pyslice_tpu_torch on one CUDA card: device time by kernel
-(torch.profiler, kernel rows), launches a step or frame, and the device's
-idle share of the wall time.
+"""Profile warm multislice-ptychography steps, or warm STEM or quick-start
+frames, of a checkout's pyslice_tpu_torch on one CUDA card: device time by
+kernel (torch.profiler, kernel rows), launches a step or frame, and the
+device's idle share of the wall time.
 
-    python3 scripts/profile_msp_step.py [--root DIR] [--grid 1023] [--stem]
+    python3 scripts/profile_msp_step.py [--root DIR] [--grid 1023]
+        [--stem | --quick]
 
 --root is the checkout whose package is imported and built (by default the
 one around this script); two checkouts compare in one call by running the
@@ -19,9 +20,13 @@ them; the call's set-up and its copies back lie outside). With --stem the
 workload is chip_smoke.py's phase 5 (at 1023^2 its phase 8) instead: 16
 probes on a 4 x 4 grid over the box, 14 slices, k-space exit waves of one
 frame through ``frame_exit_waves`` (rasterizer included), one frame to
-warm up and STEPS frames profiled, each ending in a synchronize. Prints a
-row per kernel (ms and launches a step or frame), the totals, and, last,
-one JSON object.
+warm up and STEPS frames profiled, each ending in a synchronize. With
+--quick it is the README quick start's frame (chip_smoke.py's phases 6
+and 7): one plane wave (aperture 0) on the 102.25 A box, k-space exit
+waves of one frame through ``frame_exit_waves``, at 1023^2 (K6's
+mixed-radix instantiation) or with --grid 1024 through ``fast_grid``
+(its power-of-two one). Prints a row per kernel (ms and launches a step
+or frame), the totals, and, last, one JSON object.
 """
 
 import argparse
@@ -52,7 +57,9 @@ def main():
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parent.parent)
     ap.add_argument("--grid", type=int, default=1023, choices=[1023, 1024])
-    ap.add_argument("--stem", action="store_true")
+    form = ap.add_mutually_exclusive_group()
+    form.add_argument("--stem", action="store_true")
+    form.add_argument("--quick", action="store_true")
     args = ap.parse_args()
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -74,8 +81,8 @@ def main():
     dev = torch.device("cuda")
     fs.build()
     lx = 102.25 if args.grid == 1023 else 102.35
-    if args.stem:
-        return profile_stem(args, root, card, dev, lx)
+    if args.stem or args.quick:
+        return profile_frames(args, root, card, dev, lx)
     traj = hbn_box(lx, 1)
     calc = pt.MultisliceCalculator(device=dev)
     half = 0.5 * 0.5 * 7
@@ -126,20 +133,31 @@ def main():
                   f"slices)", "step", {"grid": args.grid})
 
 
-def profile_stem(args, root, card, dev, lx):
-    """Profile STEPS warm STEM frames (16 probes, k-space exit waves)."""
+def profile_frames(args, root, card, dev, lx):
+    """Profile STEPS warm frames, k-space exit waves: STEM (16 probes) or
+    the quick start's plane wave."""
     import torch
     import pyslice_tpu_torch as pt
     from chip_smoke import hbn_box
     from pyslice_tpu_torch.engine.pipeline import frame_exit_waves
     from pyslice_tpu_torch.ops import fused_step as fs
 
-    traj = hbn_box(lx, STEPS + 1)
     calc = pt.MultisliceCalculator(device=dev)
-    calc.setup(traj, aperture=30.0, voltage_eV=100e3, sampling=0.1,
-               slice_thickness=0.5,
-               probe_positions=pt.probe_grid([10, 90], [10, 90], 4, 4),
-               device_output=True, use_cache=False)
+    if args.quick:
+        traj = hbn_box(102.25, STEPS + 1)
+        calc.setup(traj, aperture=0.0, voltage_eV=100e3, sampling=0.1,
+                   slice_thickness=0.5, device_output=True, use_cache=False,
+                   fast_grid=args.grid == 1024)
+    else:
+        traj = hbn_box(lx, STEPS + 1)
+        calc.setup(traj, aperture=30.0, voltage_eV=100e3, sampling=0.1,
+                   slice_thickness=0.5,
+                   probe_positions=pt.probe_grid([10, 90], [10, 90], 4, 4),
+                   device_output=True, use_cache=False)
+    if (calc.nx, calc.ny) != (args.grid, args.grid):
+        print(f"expected {args.grid}^2, got {calc.nx}x{calc.ny}",
+              file=sys.stderr)
+        return 1
     probes = calc._probes_array()
     frame_exit_waves(traj.positions[0], probes, calc.spec)
     torch.cuda.synchronize()
@@ -155,10 +173,12 @@ def profile_stem(args, root, card, dev, lx):
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     prof.stop()
+    what = "quick-start frame" if args.quick else "STEM frame"
     return report(prof, seconds, root, card,
-                  f"STEM frame at {calc.nx}x{calc.ny} ({calc.n_probes} "
+                  f"{what} at {calc.nx}x{calc.ny} ({calc.n_probes} "
                   f"probes x {calc.nz} slices)", "frame",
-                  {"grid": args.grid, "stem": True})
+                  {"grid": args.grid, "stem": args.stem,
+                   "quick": args.quick})
 
 
 def report(prof, seconds, root, card, what, unit, extra):

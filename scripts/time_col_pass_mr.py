@@ -10,7 +10,7 @@ axes and ``row_pass_mr_bwd``).
     python3 scripts/time_col_pass_mr.py [--root DIR]
         [--kernels a b k4 k5 k6 k7 k8]
         [--mode mid] [--phase] [--shapes 16x1023 32x1023] [--plain]
-        [--shift] [--nz 14] [--reps 20] [--rounds 5]
+        [--shift] [--nz 14] [--kspace] [--reps 20] [--rounds 5]
 
 --root is the checkout whose package is imported and built (by default the
 one around this script). Each kernel runs through that checkout's own
@@ -24,8 +24,11 @@ through --nz slices for K6, and P pairs (2P planes) of N^2 for K7 and
 K8; PxNxM has N rows of M instead of N^2. --mode is A's and K4's mode and
 K7's and K8's (``mid`` or ``last``); in ``mid`` mode A, K4, K7 and K8 run
 in place, in the others they write a second buffer (B and K5 always run
-in place). --phase hands A, K4, K7 and K8 the transmission as the float32
-phase sigma*V (cos/sin taken in the kernel) instead of the complex plane.
+in place). --phase hands A, K4, K6, K7 and K8 the transmission as the
+float32 phase sigma*V (cos/sin taken in the kernel) instead of the complex
+plane; --kspace has K6 end in k space. Where the checkout's K6 has a
+barrier floor (``fused_step_resident.barrier_floor``: the launch's grid
+barriers alone), it is timed in the same rounds as K6.
 --plain times the plain version too, in the same rounds (the order
 reversed every other round), for the routing rule of
 ``fused_step_odd.kernel_preferred_mr``. --shift places the wave one
@@ -52,7 +55,7 @@ def errors(got, want):
     return rel, (((f - r) ** 2).sum() / (r ** 2).sum()).item()
 
 
-def case(kernel, mode, phase_t, P, n, nz, shift, dev, g):
+def case(kernel, mode, phase_t, P, n, nz, shift, dev, g, kspace=False):
     """(run the kernel, run the plain version, [(got, want, vbar?)...]) of
     one kernel at one shape: the checks compare a kernel call that writes
     a new buffer with its plain version on the same inputs."""
@@ -95,11 +98,11 @@ def case(kernel, mode, phase_t, P, n, nz, shift, dev, g):
     if kernel == "k6":
         from pyslice_tpu_torch.ops import fused_step_resident as fr
         v = torch.randn((nz, nx, ny), device=dev, generator=g) * 20.0
-        t = torch.polar(torch.ones_like(v), v)
-        return (lambda: fr.resident_loop(psi, t, plane),
-                lambda: fr._plain_resident_loop(psi, t, plane),
-                [(fr.resident_loop(psi, t, plane),
-                  fr._plain_resident_loop(psi, t, plane), False)])
+        t = v if phase_t else torch.polar(torch.ones_like(v), v)
+        return (lambda: fr.resident_loop(psi, t, plane, kspace),
+                lambda: fr._plain_resident_loop(psi, t, plane, kspace),
+                [(fr.resident_loop(psi, t, plane, kspace),
+                  fr._plain_resident_loop(psi, t, plane, kspace), False)])
     from pyslice_tpu_torch.ops import fused_step_adjoint as fa
     sigma = interaction_parameter(100e3)
     if mode not in fa.BWD_MODES:
@@ -150,6 +153,7 @@ def main():
     ap.add_argument("--plain", action="store_true")
     ap.add_argument("--shift", action="store_true")
     ap.add_argument("--nz", type=int, default=14)
+    ap.add_argument("--kspace", action="store_true")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=5)
     args = ap.parse_args()
@@ -177,7 +181,8 @@ def main():
             P, *n = (int(x) for x in spec.split("x"))
             n = (n * 2)[:2]
             run, plain, checks = case(kernel, args.mode, args.phase, P, n,
-                                      args.nz, args.shift, dev, g)
+                                      args.nz, args.shift, dev, g,
+                                      args.kspace)
             torch.cuda.synchronize()
             errs = []
             for got, want, rel_only in checks:
@@ -191,20 +196,38 @@ def main():
             del checks
             n0 = fs.launches[kernel]
             fns = [run, plain] if args.plain else [run]
+            floor = None
+            if kernel == "k6":
+                from pyslice_tpu_torch.ops import fused_step_resident as fr
+                floor = getattr(fr, "barrier_floor", None)
+                run()
+                plan = dict(fr.last_launch)
+                if floor is not None:
+                    fns.append(floor)
+            else:
+                plan = None
             (ms, ts), *rest = timed(fns, args.reps, args.rounds)
-            if fs.launches[kernel] - n0 != args.rounds * args.reps + 1:
+            want = args.rounds * args.reps + 1 + (kernel == "k6")
+            if fs.launches[kernel] - n0 != want:
                 print(f"{kernel} at {spec}: the kernel was not launched",
                       file=sys.stderr)
                 return 1
-            plan = dict(getattr(fs, "last_launch",
-                                getattr(fo, "last_launch", {})).get(kernel, {}))
+            if plan is None:
+                plan = dict(getattr(fs, "last_launch", getattr(
+                    fo, "last_launch", {})).get(kernel, {}))
             entry = {"ms": ms, "rounds_ms": ts, "max_rel": errs[0][0],
                      "residual": errs[0][1], "plan": plan}
             form = (f"{args.mode}{' phase' if args.phase else ''} "
-                    if kernel in ("a", "k4", "k7", "k8") else "")
+                    if kernel in ("a", "k4", "k7", "k8") else
+                    f"{'phase ' if args.phase else ''}"
+                    f"{'kspace ' if args.kspace else ''}"
+                    if kernel == "k6" else "")
             line = (f"{kernel} {form}at {spec}"
                     f"{'^2' if spec.count('x') == 1 else ''}"
                     f"{' shifted' if args.shift else ''}: {ms:.4f} ms")
+            if floor is not None:
+                entry["barrier_ms"], entry["barrier_rounds_ms"] = rest.pop()
+                line += f", barrier floor {entry['barrier_ms']:.4f} ms"
             if rest:
                 entry["plain_ms"], entry["plain_rounds_ms"] = rest[0]
                 line += f", plain {entry['plain_ms']:.4f} ms"

@@ -21,7 +21,7 @@ from pyslice_tpu_torch.ops import fused_step_resident as fr
 
 pytestmark = pytest.mark.cuda
 
-# float32 radix-16 FFT passes against cuFFT: ~1e-6 relative per transform
+# float32 FFT passes against cuFFT: ~1e-6 relative per transform
 # pair, far inside these bars.
 MAX_REL = 1e-4
 MAX_RESIDUAL = 1e-6
@@ -260,11 +260,36 @@ def test_col_pass_mr_matches_plain(dev, n, P):
         _ok(buf, got)
 
 
-@pytest.mark.parametrize("n", MR_SIZES + [1024])
+POW2_SIZES = [128, 256, 512, 1024, 2048, 4096]
+# (nx, ny) of K6's cases: the mixed-radix instantiation on every MR_SIZES
+# axis beside an even (258) or odd (387) one and on a power-of-two axis
+# beside 258; the power-of-two instantiation on every axis from 128 to
+# 4096 beside 256 (128 beside 256), each of which the dispatch sends to K6
+# at one probe
+RES_SHAPES = ([(258, n) for n in MR_SIZES if n != 258] + [(387, 258),
+                                                          (258, 1024)]
+              + [(256, n) for n in POW2_SIZES if n != 256] + [(128, 256)])
+
+
+def _resident_plan_ok(psi, t):
+    """K6's last launch: the plan of fr.resident_plan, and a grid the card
+    holds at once."""
+    run = fr.last_launch
+    P, nx, ny = psi.shape
+    plan = fr.resident_plan(P, nx, ny, run["sms"], run["blocks_per_sm"],
+                            phase=not t.is_complex())
+    assert run["engine"] == ("pow2" if fs.supported_size(nx)
+                             and fs.supported_size(ny) else "mixed")
+    for key in ("threads", "row_lanes", "col_lanes", "smem_bytes", "grid"):
+        assert run[key] == getattr(plan, key), key
+    assert 1 <= run["grid"] <= run["blocks_per_sm"] * run["sms"]
+
+
+@pytest.mark.parametrize("shape", RES_SHAPES, ids=lambda s: "%dx%d" % s)
 @pytest.mark.parametrize("P", [1, 16])
 @pytest.mark.parametrize("kspace", [False, True])
-def test_resident_loop_matches_plain(dev, n, P, kspace):
-    nx = 258 if n != 258 else 387          # an even and an odd axis
+def test_resident_loop_matches_plain(dev, shape, P, kspace):
+    nx, n = shape
     psi = _wave(dev, P, nx, n)
     g = torch.Generator(device=dev).manual_seed(3)
     v = torch.randn((3, nx, n), device=dev, generator=g) * 20
@@ -274,8 +299,48 @@ def test_resident_loop_matches_plain(dev, n, P, kspace):
         got = fr.resident_loop(psi, t, prop, kspace)
         assert fs.launches["k6"] == n0 + 1
         _ok(got, fr._plain_resident_loop(psi, t, prop, kspace))
-    assert fr.last_launch["grid"] <= (fr.last_launch["blocks_per_sm"]
-                                      * fr.last_launch["sms"])
+        _resident_plan_ok(psi, t)
+
+
+@pytest.mark.parametrize("n", [256, 1023, 1024, 1152])
+@pytest.mark.parametrize("phase", [False, True])
+@pytest.mark.parametrize("kspace", [False, True])
+def test_resident_loop_fourteen_distinct_slices(dev, n, phase, kspace):
+    """14 slices, each with its own t: a phase that read the state of an
+    earlier phase (a stale line in L1) would put another slice's wave into
+    the product."""
+    psi = _wave(dev, 1, n, n, seed=5)
+    g = torch.Generator(device=dev).manual_seed(6)
+    v = torch.randn((14, n, n), device=dev, generator=g) * 20
+    t = v if phase else torch.complex(torch.cos(v), torch.sin(v))
+    prop = _prop(dev, n, n)
+    _ok(fr.resident_loop(psi, t, prop, kspace),
+        fr._plain_resident_loop(psi, t, prop, kspace))
+    _resident_plan_ok(psi, t)
+
+
+@pytest.mark.parametrize("n", [1023, 1024])
+@pytest.mark.parametrize("kspace", [False, True])
+def test_resident_loop_is_bit_identical(dev, n, kspace):
+    """Two launches on the same inputs give the same bits (no atomics, no
+    order that depends on the schedule)."""
+    psi = _wave(dev, 1, n, n, seed=7)
+    g = torch.Generator(device=dev).manual_seed(8)
+    v = torch.randn((14, n, n), device=dev, generator=g) * 20
+    t = torch.complex(torch.cos(v), torch.sin(v))
+    prop = _prop(dev, n, n)
+    first = fr.resident_loop(psi, t, prop, kspace)
+    assert torch.equal(fr.resident_loop(psi, t, prop, kspace), first)
+
+
+def test_resident_barrier_floor_launches_no_k6(dev):
+    psi = _wave(dev, 1, 1023, 1023)
+    v = torch.zeros((14, 1023, 1023), device=dev)
+    fr.resident_loop(psi, v, _prop(dev, 1023, 1023), kspace=True)
+    n0 = fs.launches["k6"]
+    fr.barrier_floor()
+    torch.cuda.synchronize()
+    assert fs.launches["k6"] == n0
 
 
 @pytest.mark.parametrize("n", [1023, 1024])
