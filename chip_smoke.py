@@ -46,7 +46,28 @@ Phases, each printing one line (or a few) and failing hard:
    before and checked after every step, finite and falling losses, s/step;
 11. refine_structure at 1024^2 for 3 steps, the launches of every step
    checked;
-12. a JSON line per kernel, the nvidia-smi line, and the final JSON line.
+12. config 5 (BASELINE.json) at full width, its frames cut from 1000 to 8:
+   the hBN box of 204.75 A (15,228 atoms, 2048^2 x 14), 64 probes at
+   25 mrad in chunks of 16, StreamingTACAW at [10, 20, 40] THz fed in
+   out-of-order blocks of 4: A/B/C launches and one rasterization a frame;
+   each bin against the same stream with the kernels off and the
+   complex128 stream (the residual bar; max|d| against complex128 at most
+   twice the plain float32 stream's), the batch path on the first 16
+   probes (max|d|/max|ref| <= 1e-4); the peak memory beside the state; the
+   fold alone within one chunk's exit waves of memory; ms/frame in turns
+   and the fold's share; StreamingHAADF on the same frames against
+   HAADFData;
+13. those frames as a gzipped 17-digit LAMMPS dump through
+   TrajectoryStream into a 16-probe stream, a checkpoint after the first
+   block restored into a fresh stream: bit-identical to the uninterrupted
+   stream, within 1e-4 of phase 12; an 8-digit dump's difference printed;
+14. StreamingHAADF at 512^2 over 48 x 48 probes: the automatic route picks
+   the S-matrix (K6 on 64-beam chunks), held against the direct route
+   (K6 on 256-probe chunks); frozen_phonon_haadf at 16 probes (K4, K5) and
+   frozen_phonon_diffraction (K6 mixed radix) on the 1023^2 box;
+15. Potential -> Propagate at 16 probes x 1024^2 (A, B) against the plain
+   multislice;
+16. a JSON line per kernel, the nvidia-smi line, and the final JSON line.
 
 Each kernel's record carries its bound: the least time an H100 could take
 for the launch timed, the larger of the bytes it must move (each input
@@ -110,14 +131,17 @@ def require(cond, what):
         raise SystemExit(f"chip_smoke FAILED: {what}")
 
 
-def errors(got, want):
-    """(max|d|, max|d|/max|ref|, magnitude residual) of two tensors."""
+def errors(got, want, scale=None):
+    """(max|d|, max|d|/scale, magnitude residual) of two tensors; ``scale``
+    defaults to max|ref|. Two tensors that are both zero give (0, 0, 0)."""
     import torch
     torch.cuda.synchronize()
     d = (got - want).abs().max().item()
     f, r = got.abs().double(), want.abs().double()
-    res = (((f - r) ** 2).sum() / (f ** 2).sum()).item()
-    return d, d / want.abs().max().item(), res
+    den = (f ** 2).sum().item()
+    res = ((f - r) ** 2).sum().item() / den if den else float(d > 0)
+    scale = scale or want.abs().max().item()
+    return d, d / scale if scale else d, res
 
 
 def check(name, got, want):
@@ -191,6 +215,44 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def launches_of(fn):
+    """fn() with every launch count set to 0 just before it and read just
+    after (synchronized); returns (result, counts, seconds)."""
+    import torch
+    from pyslice_tpu_torch.ops import fused_step as fs
+    for k in fs.launches:
+        fs.launches[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(fs.launches), time.perf_counter() - t0
+
+
+def want_counts(**n):
+    from pyslice_tpu_torch.ops import fused_step as fs
+    want = dict.fromkeys(fs.launches, 0)
+    want.update(n)
+    return want
+
+
+class dispatch:
+    """The kernels' dispatch flags for the duration of a block."""
+
+    def __init__(self, fused="auto", resident="auto"):
+        self.flags = (fused, resident)
+
+    def __enter__(self):
+        from pyslice_tpu_torch.ops import config as ops_config
+        ops_config.fused_multislice, ops_config.resident_multislice = \
+            self.flags
+
+    def __exit__(self, *exc):
+        from pyslice_tpu_torch.ops import config as ops_config
+        ops_config.fused_multislice = "auto"
+        ops_config.resident_multislice = "auto"
 
 
 def kernel_phase(dev, P=N_PROBES, n=N_GRID, nz=N_SLICES):
@@ -473,16 +535,7 @@ def counted_run(calc, want):
     """calc.run() with every launch count set to 0 just before and read
     just after; fails unless the counts are ``want``. Returns (WFData,
     counts, seconds)."""
-    import torch
-    from pyslice_tpu_torch.ops import fused_step as fs
-    for k in fs.launches:
-        fs.launches[k] = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    wf = calc.run(progress=False)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    counts = dict(fs.launches)
+    wf, counts, run_s = launches_of(lambda: calc.run(progress=False))
     print(f"  launches {counts}, expected {want}")
     require(counts == want, "the path did not run exactly its kernels")
     return wf, counts, run_s
@@ -492,17 +545,11 @@ def frame_at(calc, traj, fused="auto", resident="auto"):
     """Frame 0's k-space exit waves under the given dispatch flags."""
     import torch
     from pyslice_tpu_torch.engine.pipeline import frame_exit_waves
-    from pyslice_tpu_torch.ops import config as ops_config
-    ops_config.fused_multislice = fused
-    ops_config.resident_multislice = resident
-    try:
+    with dispatch(fused, resident):
         out = frame_exit_waves(traj.positions[0], calc._probes_array(),
                                calc.spec)
         torch.cuda.synchronize()
-        return out
-    finally:
-        ops_config.fused_multislice = "auto"
-        ops_config.resident_multislice = "auto"
+    return out
 
 
 def check_frame0(calc, traj, w):
@@ -702,28 +749,36 @@ def adjoint_kernel_phase(dev, P=N_PROBES, nz=N_SLICES,
 
 
 class counted_calls:
-    """Wrap ``owner.name`` (a method or a module function) so that every
-    call runs with the launch counts set to 0 just before it and read just
-    after, with its wall time (synchronized); ``log`` holds (counts,
-    seconds) per call. Restores the original on exit."""
+    """Replace ``owner.name`` (a method or a module function) by a wrapper
+    that counts its calls; restores the original on exit. With
+    ``launches``, each call runs under ``launches_of`` and ``log`` holds its
+    (launch counts, seconds); with ``events``, CUDA events are recorded
+    around each call, and ``ms()`` sums them."""
 
-    def __init__(self, owner, name):
-        self.owner, self.name, self.log = owner, name, []
+    def __init__(self, owner, name, launches=False, events=False):
+        self.owner, self.name = owner, name
+        self.launches, self.events = launches, events
+        self.calls, self.log, self.marks = 0, [], []
 
     def __enter__(self):
         import torch
-        from pyslice_tpu_torch.ops import fused_step as fs
         orig = self.orig = getattr(self.owner, self.name)
-        log = self.log
 
         def counted(*args, **kwargs):
-            for k in fs.launches:
-                fs.launches[k] = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = orig(*args, **kwargs)
-            torch.cuda.synchronize()
-            log.append((dict(fs.launches), time.perf_counter() - t0))
+            self.calls += 1
+            if self.events:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            if self.launches:
+                out, counts, seconds = launches_of(
+                    lambda: orig(*args, **kwargs))
+                self.log.append((counts, seconds))
+            else:
+                out = orig(*args, **kwargs)
+            if self.events:
+                end.record()
+                self.marks.append((start, end))
             return out
 
         setattr(self.owner, self.name, counted)
@@ -731,6 +786,12 @@ class counted_calls:
 
     def __exit__(self, *exc):
         setattr(self.owner, self.name, self.orig)
+
+    def ms(self):
+        """Summed device ms between each call's events."""
+        import torch
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.marks)
 
 
 def require_step_counts(log, want, what):
@@ -760,7 +821,6 @@ def msp_phase(dev, card, lx, grid, keys, scan=MSP_SCAN, batch=MSP_BATCH,
     import pyslice_tpu_torch as pt
     from pyslice_tpu_torch.analysis import ptychography as ptycho
     from pyslice_tpu_torch.core.dtypes import SINGLE
-    from pyslice_tpu_torch.ops import config as ops_config
     from pyslice_tpu_torch.ops import fused_step as fs
 
     traj = hbn_box(lx, 1)
@@ -811,11 +871,8 @@ def msp_phase(dev, card, lx, grid, keys, scan=MSP_SCAN, batch=MSP_BATCH,
     counts = dict(fs.launches)
     require(counts == step_want(keys, nz),
             f"gradient launches {counts}, expected {step_want(keys, nz)}")
-    ops_config.fused_multislice = "off"
-    try:
+    with dispatch("off"):
         g_plain = grads()
-    finally:
-        ops_config.fused_multislice = "auto"
     for name, a, b in zip(("dL/dV", "dL/dprobe"), g_kernel, g_plain):
         d, rel, _ = errors(a, b)
         print(f"  {name}, kernels vs plain path: max|d| {d:.3e}  "
@@ -826,14 +883,9 @@ def msp_phase(dev, card, lx, grid, keys, scan=MSP_SCAN, batch=MSP_BATCH,
     times = {}
     k_bwd = 0
     for label, flag in (("kernels", "auto"), ("plain torch.fft", "off")):
-        ops_config.fused_multislice = flag
-        try:
-            with counted_calls(ptycho._MspRun, "step") as c:
-                rec = pt.msp_reconstruct(data, positions, probe,
-                                         n_slices=nz, dz=0.5, batch=batch,
-                                         steps=steps)
-        finally:
-            ops_config.fused_multislice = "auto"
+        with dispatch(flag), counted_calls(ptycho._MspRun, "step", launches=True) as c:
+            rec = pt.msp_reconstruct(data, positions, probe, n_slices=nz,
+                                     dz=0.5, batch=batch, steps=steps)
         losses = rec["losses"]
         print(f"  {label}: losses {np.array2string(losses, precision=6)}; "
               f"launches a step {c.log[0][0]}")
@@ -862,7 +914,7 @@ def refine_phase(data, calc, traj, steps=REFINE_STEPS, batch=MSP_BATCH):
     pos0 = np.array(traj.positions[0], np.float64)
     pos0[:, :2] += np.random.default_rng(0).normal(0, 0.02,
                                                    (len(pos0), 2))
-    with counted_calls(inverse, "_step") as c:
+    with counted_calls(inverse, "_step", launches=True) as c:
         rec = pt.refine_structure(data, np.asarray(calc.probe_positions),
                                   calc.base_probe, pos0, traj.atom_types,
                                   calc.zs, steps=steps, batch=batch)
@@ -875,6 +927,484 @@ def refine_phase(data, calc, traj, steps=REFINE_STEPS, batch=MSP_BATCH):
     require(np.isfinite(rec["losses"]).all()
             and np.isfinite(rec["positions"]).all(), "non-finite refinement")
     return sum(counts["k7"] for counts, _ in c.log)
+
+
+# --- config 5's streaming path (phases 12-15) --------------------------------
+
+STREAM_LX, STREAM_FRAMES, STREAM_SCAN = 204.75, 8, 8   # 2048^2, 64 probes
+STREAM_CHUNK, STREAM_BLOCK = 16, 4
+STREAM_FREQS = [10.0, 20.0, 40.0]     # THz; bins 0, 1, 2 at 8 frames
+# Config 5's f!=0 amplitudes, kernel stream against the plain float32 one:
+# 1.5e-4 of max|ref| read on an H100 (the plain stream is itself 3.8e-4 to
+# 4.4e-4 from complex128 there), so the bar is twice that reading.
+STREAM_MAX_REL = 3e-4
+RESUME_PROBES, RESUME_CHUNK = 16, 8
+SM_LX, SM_SCAN, SM_FRAMES = 51.15, 48, 2      # 512^2, 2,304 probes
+SM_DIRECT_CHUNK = 256
+FP_CONFIGS = 8
+
+
+def gib(nbytes):
+    return nbytes / 2 ** 30
+
+
+def stream_setup(dev, lx, n_frames, scan):
+    """Config 5's set-up (tools/bench_configs.py _config5): the hBN box of
+    side lx with n_frames thermal frames, its grid at 0.1 A and 0.5 A
+    slices, 100 kV, and a scan x scan probe grid over [20, 180] A of the
+    204.75 A box (scaled with lx) at 25 mrad."""
+    import pyslice_tpu_torch as pt
+    from pyslice_tpu_torch.engine.pipeline import SimSpec
+    traj = hbn_box(lx, n_frames)
+    g = pt.grid_from_trajectory(traj, sampling=0.1, slice_thickness=0.5)
+    plan = pt.make_plan(g.xs, g.ys, g.zs, traj.positions, traj.atom_types)
+    spec = SimSpec.create(g, plan, 100e3)
+    span = [20.0 * lx / 204.75, 180.0 * lx / 204.75]
+    pg = pt.probe_grid(span, span, scan, scan)
+    base = pt.Probe(g.xs, g.ys, 25.0, 100e3, device=dev)
+    return traj, g, spec, pg, base
+
+
+def per_bin(got, want):
+    """errors() of each bin of two (bins, ...) tensors, each scaled by the
+    largest |ref| over all bins (the f=0 bin is zero after the mean
+    correction)."""
+    scale = want.abs().max().item()
+    return [errors(got[i], want[i], scale) for i in range(len(want))]
+
+
+def amplitude(st, f):
+    """Bin f's complex amplitude over all probes of a StreamingTACAW run:
+    the accumulator, less the mean at f=0 (|.|^2 is the intensity)."""
+    import torch
+    return torch.cat([
+        acc[f] - st._mean_chunks[i] if st._track_mean and st.bins[f] == 0
+        else acc[f] for i, acc in enumerate(st._acc_chunks)])
+
+
+def stream_phase(dev, card, lx=STREAM_LX, n_frames=STREAM_FRAMES,
+                 scan=STREAM_SCAN, chunk=STREAM_CHUNK, block=STREAM_BLOCK):
+    """Phase 12: config 5, StreamingTACAW and StreamingHAADF at full width.
+    Returns (launch counts of the main path's runs, the set-up and the
+    kernel stream's intensity)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import pyslice_tpu_torch as pt
+    from pyslice_tpu_torch.core.dtypes import DOUBLE
+    from pyslice_tpu_torch.engine import streaming
+    from pyslice_tpu_torch.engine.pipeline import exit_waves_from_potential
+    from pyslice_tpu_torch.ops import fused_step as fs
+
+    traj, g, spec, pg, base = stream_setup(dev, lx, n_frames, scan)
+    probes = pt.create_batched_probes(base, pg).array
+    P, nx, ny, nz = len(pg), g.nx, g.ny, g.nz
+    n_chunks = -(-P // chunk)
+    order = [int(t) for t in np.random.default_rng(0).permutation(n_frames)]
+    blocks = [order[i:i + block] for i in range(0, n_frames, block)]
+    print(f"  {traj.n_atoms} atoms, grid {nx}x{ny}x{nz}, {P} probes in "
+          f"{n_chunks} chunks of {chunk}, frequencies {STREAM_FREQS} THz; "
+          f"frames cut from config 5's 1000 to {n_frames} for the run's time "
+          f"limit, fed in blocks {blocks}")
+
+    def stream(fused):
+        st = pt.StreamingTACAW(spec, probes, n_frames, traj.timestep,
+                               frequencies=STREAM_FREQS, probe_chunk=chunk)
+        with dispatch(fused):
+            for b in blocks:
+                st.add_frame_block(b, traj.positions[b])
+        return st
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with counted_calls(streaming, "rasterize") as rast:
+        st, counts, run_s = launches_of(lambda: stream("auto"))
+    peak = torch.cuda.max_memory_allocated() - before
+    want = want_counts(a=n_frames * n_chunks * nz,
+                       b=n_frames * n_chunks * (nz - 1),
+                       c=n_frames * n_chunks)
+    print(f"  bins {st.bins.tolist()} ({st.frequencies.tolist()} THz); "
+          f"launches {counts}, expected {want}; rasterizations "
+          f"{rast.calls} for {n_frames} frames; {run_s:.2f} s")
+    require(counts == want, "the stream did not run exactly its kernels")
+    require(rast.calls == n_frames, "not one rasterization a frame")
+    nb = len(st.bins)
+    c64 = probes.element_size()
+    plane = nx * ny * c64
+    state = (nb + 1) * P * plane
+    print(f"  peak memory over the stream {gib(peak):.2f} GiB above the "
+          f"{gib(before):.2f} allocated before: state {gib(state):.2f} GiB "
+          f"({nb} bins + the mean, {state / 1e9:.2f} GB), probes "
+          f"{gib(P * plane):.2f} GiB ({P * plane / 1e9:.2f} GB), one chunk's "
+          f"exit waves {gib(chunk * plane):.2f} GiB "
+          f"({chunk * plane / 1e9:.2f} GB); card {card}")
+    inten = st.intensity()
+    require(tuple(inten.shape) == (nb, P, nx, ny)
+            and bool(torch.isfinite(inten).all()), "stream intensity")
+
+    # Reference 1: the same stream with the kernels off, and the exact
+    # stream (complex128, plain): each bin's complex amplitude (the
+    # accumulator, less the mean at f=0; |.|^2 is the intensity). The f!=0
+    # bins are small differences of large waves: float32 itself, plain or
+    # kernels, lands ~4e-4 of max|ref| from the exact stream there, so the
+    # kernel stream is held to the residual bar against both, to
+    # STREAM_MAX_REL against the plain stream, and to at most twice the
+    # plain float32 stream's max|d| against the exact one.
+    plain = stream("off")
+    exact = pt.StreamingTACAW(
+        dataclasses.replace(spec, precision=DOUBLE),
+        pt.create_batched_probes(pt.Probe(spec.grid.xs, spec.grid.ys, 25.0,
+                                          100e3, precision=DOUBLE,
+                                          device=dev), pg).array,
+        n_frames, traj.timestep, frequencies=STREAM_FREQS, probe_chunk=chunk)
+    for b in blocks:
+        exact.add_frame_block(b, traj.positions[b])
+    for f, b in enumerate(st.bins):
+        pairs = {k: errors(amplitude(x, f), amplitude(y, f))[1:] for k, x, y
+                 in (("kernels vs plain", st, plain),
+                     ("kernels vs complex128", st, exact),
+                     ("plain vs complex128", plain, exact))}
+        print(f"  bin {b} ({st.frequencies[f]:.1f} THz) amplitudes, "
+              "max|d|/max|ref| and residual: " + "; ".join(
+                  f"{k} {rel:.3e}, {res:.3e}"
+                  for k, (rel, res) in pairs.items()))
+        require(pairs["kernels vs plain"][0] <= STREAM_MAX_REL
+                and pairs["kernels vs plain"][1] <= MAX_RESIDUAL
+                and pairs["kernels vs complex128"][1] <= MAX_RESIDUAL
+                and pairs["kernels vs complex128"][0]
+                <= 2 * pairs["plain vs complex128"][0],
+                f"bin {b}: kernel stream disagrees with plain or complex128")
+    del exact
+    inten_p = plain.intensity()
+    del plain
+    for i, (_, rel, res) in enumerate(per_bin(inten, inten_p)):
+        print(f"  bin {st.bins[i]} intensity, kernels vs plain: "
+              f"max|d|/max|ref| {rel:.3e}  residual {res:.3e}")
+    del inten_p
+
+    # The fold alone, on one chunk's k-space waves (this and the timings
+    # below fold into st, whose results are taken).
+    pos0 = torch.as_tensor(traj.positions[0], device=dev)
+    v = pt.rasterize(pos0, spec.plan)
+    psi = exit_waves_from_potential(v, probes[:chunk], spec)[..., 0]
+    phases = st._phases([0])[0]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    streaming.fold(st._acc_chunks[0], st._mean_chunks[0], psi, phases)
+    torch.cuda.synchronize()
+    fold_peak = torch.cuda.max_memory_allocated() - held
+    fold_ms = cuda_ms(lambda: streaming.fold(st._acc_chunks[0],
+                                             st._mean_chunks[0], psi,
+                                             phases), reps=5)
+    fold_bytes = (2 * (nb + 1) + 1) * chunk * plane
+    print(f"  fold alone ({nb} bins + mean, {chunk} x {nx}^2): peak "
+          f"{fold_peak / 1e9:.3f} GB above the {held / 1e9:.2f} GB held "
+          f"(limit one chunk's exit waves, {chunk * plane / 1e9:.2f} GB); "
+          f"{fold_ms:.3f} ms, bound {1e3 * fold_bytes / HBM_BYTES_S:.3f} ms "
+          f"(HBM, {fold_bytes / 1e9:.2f} GB)")
+    require(fold_peak <= chunk * plane, "the fold allocates more than one "
+            "chunk's exit waves")
+
+    # ms a frame in turns, the fold's share, A/B/C at the chunk's shape.
+    pos = torch.as_tensor(traj.positions[order[0]], device=dev)
+    times = {"kernels": [], "plain torch.fft": []}
+    flags = {"kernels": "auto", "plain torch.fft": "off"}
+    for r in range(3):
+        for way in (list(times) if r % 2 == 0 else list(times)[::-1]):
+            with dispatch(flags[way]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st._fold_frame(pos, phases)
+                torch.cuda.synchronize()
+            times[way].append(1e3 * (time.perf_counter() - t0))
+    med = {way: float(np.median(ts)) for way, ts in times.items()}
+    with counted_calls(streaming, "fold", events=True) as folds, \
+            counted_calls(st, "_fold_frame", events=True) as frame:
+        st._fold_frame(pos, phases)
+    fold_share = folds.ms() / frame.ms()
+    print(f"  ms/frame, median of 3 in turns ({P} probes x {nx}^2 x {nz} "
+          f"slices, rasterizer included): kernels {med['kernels']:.2f}, "
+          f"plain torch.fft {med['plain torch.fft']:.2f}; one frame's device "
+          f"time {frame.ms():.2f} ms, the fold {folds.ms():.2f} ms "
+          f"({100 * fold_share:.1f}%, {folds.calls} calls); run "
+          f"{1e3 * run_s / n_frames:.2f} ms/frame over {n_frames}; card {card}")
+    buf = probes[:chunk].clone()
+    t = torch.complex(torch.cos(v[0]), torch.sin(v[0]))
+    prop = fs.fresnel_plane(spec.plan.kxs, spec.plan.kys, spec.lam, spec.dz,
+                            device=dev)
+    abc = {"a": cuda_ms(lambda: fs.row_pass("mid", buf, t, out=buf)),
+           "b": cuda_ms(lambda: fs.col_pass(buf, prop, out=buf)),
+           "c": cuda_ms(lambda: fs.kconvert(buf))}
+    plain_abc = {"a": cuda_ms(lambda: fs._plain_row_pass("mid", buf, t)),
+                 "b": cuda_ms(lambda: fs._plain_col_pass(buf, prop)),
+                 "c": cuda_ms(lambda: fs._plain_kconvert(buf))}
+    kern = n_chunks * (nz * abc["a"] + (nz - 1) * abc["b"] + abc["c"])
+    print(f"  at {chunk}x{nx}^2, ms (plain torch.fft, bound): A mid "
+          f"{abc['a']:.4f} ({plain_abc['a']:.4f}, "
+          f"{kernel_bound('pass', chunk, nx)['bound_ms']:.4f}), B "
+          f"{abc['b']:.4f} ({plain_abc['b']:.4f}, same bound), C "
+          f"{abc['c']:.4f} ({plain_abc['c']:.4f}, "
+          f"{kernel_bound('kconvert', chunk, nx)['bound_ms']:.4f}): "
+          f"{kern:.2f} ms of kernels a frame")
+    del buf, t, psi, v
+
+    # Reference 2: the batch path on the first chunk's probes.
+    calc = pt.MultisliceCalculator(device=dev)
+    calc.setup(traj, aperture=25.0, voltage_eV=100e3, sampling=0.1,
+               slice_thickness=0.5, probe_positions=pg[:chunk],
+               device_output=True, use_cache=False)
+    wf = calc.run(progress=False)
+    tac = pt.TACAWData(wf)
+    fi = [int(np.argmin(np.abs(tac.frequencies - f))) for f in st.frequencies]
+    ref = tac.intensity[:, fi].transpose(0, 1)          # (bins, chunk, ...)
+    for i, (_, rel, _) in enumerate(per_bin(inten[:, :chunk], ref)):
+        print(f"  bin {st.bins[i]}, stream vs batch TACAWData on {chunk} "
+              f"probes: max|d|/max|ref| {rel:.3e}")
+        require(rel <= MAX_REL, f"bin {st.bins[i]}: stream disagrees with "
+                "the batch path")
+    adf = pt.HAADFData(wf).calculateADF(45)
+    del wf, tac, ref, calc
+
+    # StreamingHAADF on the same frames.
+    sh = pt.StreamingHAADF(spec, probes, pg, collection_angle=45,
+                           probe_chunk=chunk)
+    _, h_counts, h_s = launches_of(lambda: [
+        sh.add_frame_block(traj.positions[b], b) for b in blocks])
+    require(h_counts == want, f"StreamingHAADF launches {h_counts}")
+    img = sh.image()
+    cols = chunk // scan
+    d = np.abs(img[:, :cols] - adf).max() / np.abs(adf).max()
+    print(f"  StreamingHAADF image {img.shape}, range {img.min():.4e}.."
+          f"{img.max():.4e}; launches as the TACAW stream's; {h_s:.2f} s; "
+          f"vs HAADFData.calculateADF(45) on {chunk} probes: max|d|/max|ref| "
+          f"{d:.3e}")
+    require(img.shape == (scan, scan) and np.isfinite(img).all()
+            and img.min() > 0, "StreamingHAADF image")
+    require(d <= MAX_REL, "StreamingHAADF disagrees with HAADFData")
+    total = {k: counts[k] + h_counts[k] for k in counts}
+    return total, (traj, spec, pg, base), inten[:, :RESUME_PROBES].clone()
+
+
+def resume_phase(dev, card, setup, inten_ref, tmp, n_probes=RESUME_PROBES,
+                 chunk=RESUME_CHUNK, block=STREAM_BLOCK):
+    """Phase 13: the phase-12 frames as a gzipped LAMMPS dump (17 digits,
+    exact in float64), streamed by TrajectoryStream into StreamingTACAW; a
+    checkpoint after the first block restored into a fresh stream. The
+    same from an 8-digit dump, whose rounding is printed, not held to the
+    bar. Returns the launch counts."""
+    import gzip
+    import os
+    import shutil
+    import numpy as np
+    import torch
+    import pyslice_tpu_torch as pt
+    from pyslice_tpu_torch.io.lammps import write_lammps_dump
+
+    traj, spec, pg, base = setup
+    n_frames = traj.n_frames
+
+    def dump(digits):
+        plain = f"{tmp}/config5_{digits}.lammpstrj"
+        t0 = time.perf_counter()
+        write_lammps_dump(plain, np.where(traj.atom_types == 5, 1, 2),
+                          traj.positions, traj.velocities, traj.box_matrix,
+                          digits=digits)
+        with open(plain, "rb") as src, gzip.open(plain + ".gz", "wb") as dst:
+            shutil.copyfileobj(src, dst)
+        os.remove(plain)
+        source = pt.TrajectoryStream(plain + ".gz", timestep=traj.timestep,
+                                     atom_mapping={1: "B", 2: "N"},
+                                     block_frames=block)
+        print(f"  wrote {digits}-digit config5.lammpstrj.gz "
+              f"({os.path.getsize(plain + '.gz') / 1e6:.1f} MB) in "
+              f"{time.perf_counter() - t0:.1f} s: {source.count_frames()} "
+              f"frames of {source.n_atoms} atoms")
+        require(source.count_frames() == n_frames
+                and source.n_atoms == traj.n_atoms, "TrajectoryStream")
+        return source
+
+    probes = pt.create_batched_probes(base, pg[:n_probes]).array
+
+    def stream(source):
+        st = pt.StreamingTACAW(spec, probes, n_frames, traj.timestep,
+                               frequencies=STREAM_FREQS, probe_chunk=chunk)
+        for idx, pos in source.blocks():
+            st.add_frame_block(list(idx), pos)
+        return st
+
+    source = dump(17)
+
+    def run():
+        full = stream(source)
+        part = pt.StreamingTACAW(spec, probes, n_frames, traj.timestep,
+                                 frequencies=STREAM_FREQS, probe_chunk=chunk)
+        blocks = source.blocks()
+        idx, pos = next(blocks)
+        blocks.close()
+        part.add_frame_block(list(idx), pos)
+        ck = f"{tmp}/checkpoint"
+        t0 = time.perf_counter()
+        part.save_checkpoint(ck)
+        save_s = time.perf_counter() - t0
+        resumed = pt.StreamingTACAW(spec, probes, n_frames, traj.timestep,
+                                    frequencies=STREAM_FREQS,
+                                    probe_chunk=chunk)
+        t0 = time.perf_counter()
+        seen = resumed.restore(ck)
+        load_s = time.perf_counter() - t0
+        require(seen == set(int(t) for t in idx), f"restored frames {seen}")
+        for idx, pos in source.blocks():
+            if int(idx[0]) not in seen:
+                resumed.add_frame_block(list(idx), pos)
+        nbytes = sum(os.path.getsize(f"{ck}/{n}") for n in os.listdir(ck))
+        return full.intensity(), resumed.intensity(), save_s, load_s, nbytes
+
+    (full, resumed, save_s, load_s, nbytes), counts, run_s = launches_of(run)
+    n_chunks = -(-n_probes // chunk)
+    fed = 2 * n_frames
+    want = want_counts(a=fed * n_chunks * spec.grid.nz,
+                       b=fed * n_chunks * (spec.grid.nz - 1),
+                       c=fed * n_chunks)
+    print(f"  {n_probes} probes in chunks of {chunk}: checkpoint "
+          f"{nbytes / 1e9:.2f} GB saved in {save_s:.1f} s, restored in "
+          f"{load_s:.1f} s; launches {counts}, expected {want}; {run_s:.1f} s")
+    require(counts == want, "the streams did not run exactly their kernels")
+    require(torch.equal(full, resumed), "resume is not bit-identical")
+    rel = max(r for _, r, _ in per_bin(full, inten_ref))
+    print(f"  resumed stream == uninterrupted stream, bit for bit; vs phase "
+          f"12 (another frame order and chunking): max|d|/max|ref| "
+          f"{rel:.3e}")
+    require(rel <= MAX_REL, "the dump-fed stream disagrees with phase 12")
+    rounded = stream(dump(8)).intensity()
+    rel8 = max(r for _, r, _ in per_bin(rounded, inten_ref))
+    print(f"  the 8-digit dump (positions rounded by up to 5e-6 A) vs phase "
+          f"12: max|d|/max|ref| {rel8:.3e} (printed, not held to the bar)")
+    return counts
+
+
+def smatrix_phase(dev, card, lx=SM_LX, scan=SM_SCAN, n_frames=SM_FRAMES):
+    """Phase 14a: StreamingHAADF at 512^2 over a scan x scan scan: the
+    automatic route (the S-matrix above SMATRIX_MIN_PROBES) against the
+    direct route in 256-probe chunks. Returns the K6 launches."""
+    import numpy as np
+    import torch
+    import pyslice_tpu_torch as pt
+    from pyslice_tpu_torch.engine import smatrix
+
+    traj, g, spec, _, base = stream_setup(dev, lx, n_frames, scan)
+    span = [0.5, lx - 0.5]
+    pg = pt.probe_grid(span, span, scan, scan)
+    probes = pt.create_batched_probes(base, pg).array
+    P = len(pg)
+    sm = pt.StreamingHAADF(spec, probes, pg, collection_angle=45, mrad=25.0)
+    nb = sm._beams.n_beams if sm.use_smatrix else 0
+    n_bc = -(-nb // min(64, max(nb, 1)))
+    print(f"  grid {g.nx}x{g.ny}x{g.nz}, {P} probes: S-matrix route "
+          f"{sm.use_smatrix} (SMATRIX_MIN_PROBES {smatrix.SMATRIX_MIN_PROBES});"
+          f" {nb} beams in {n_bc} chunks of <= 64, S "
+          f"{nb * g.nx * g.ny * probes.element_size() / 1e9:.2f} GB")
+    require(sm.use_smatrix, "the automatic route did not pick the S-matrix")
+    direct = pt.StreamingHAADF(spec, probes, pg, collection_angle=45,
+                               mrad=25.0, use_smatrix=False,
+                               probe_chunk=SM_DIRECT_CHUNK)
+    n_pc = -(-P // SM_DIRECT_CHUNK)
+    k6 = 0
+    for name, st, per in (("S-matrix", sm, n_bc), ("direct", direct, n_pc)):
+        _, counts, s = launches_of(lambda: [
+            st.add_frame(traj.positions[f], frame_index=f)
+            for f in range(n_frames)])
+        want = want_counts(k6=n_frames * per)
+        print(f"  {name}: launches {counts}, expected {want}; "
+              f"{1e3 * s / n_frames:.1f} ms/frame over {n_frames}")
+        require(counts == want, f"{name} route launches")
+        k6 += counts["k6"]
+    a, b = sm.image(), direct.image()
+    rel = np.abs(a - b).max() / np.abs(b).max()
+    print(f"  images {a.shape}: S-matrix vs direct max|d|/max|ref| {rel:.3e}")
+    require(a.shape == (scan, scan) and np.isfinite(a).all() and a.min() > 0,
+            "S-matrix image")
+    require(rel <= MAX_REL, "S-matrix route disagrees with the direct route")
+    pos = torch.as_tensor(traj.positions[0], device=dev)
+    times = {"S-matrix": [], "direct": []}
+    for r in range(2):
+        for name in (list(times) if r % 2 == 0 else list(times)[::-1]):
+            st = sm if name == "S-matrix" else direct
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st._fold_frame(pos)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+    print(f"  ms/frame in turns (S-matrix, direct, direct, S-matrix): "
+          f"S-matrix {times['S-matrix']}, direct {times['direct']}; "
+          f"card {card}")
+    return k6
+
+
+def thermal_phase(dev, card, lx=102.25, n=N_ODD, n_configs=FP_CONFIGS):
+    """Phase 14b: frozen_phonon_haadf at 16 probes and
+    frozen_phonon_diffraction as a plane wave on the 1023^2 box. Returns
+    the launch counts."""
+    import numpy as np
+    import torch
+    import pyslice_tpu_torch as pt
+    from pyslice_tpu_torch.engine import thermal
+    from pyslice_tpu_torch.ops import fused_step_resident as fr
+
+    traj = hbn_box(lx, 1)
+    pg = pt.probe_grid([10, 90], [10, 90], 4, 4)
+    gen = lambda: torch.Generator().manual_seed(0)
+    (img, xs, ys), counts, s = launches_of(lambda: thermal.frozen_phonon_haadf(
+        traj, pg, n_configs=n_configs, generator=gen(), aperture=30.0,
+        device=dev))
+    nz = pt.grid_from_trajectory(traj, 0.1, 0.5).nz
+    want = want_counts(k4=n_configs * nz, k5=n_configs * (nz - 1))
+    print(f"  frozen_phonon_haadf, {n_configs} configurations x 16 probes: "
+          f"launches {counts}, expected {want}; image {img.shape} range "
+          f"{img.min():.4e}..{img.max():.4e}; {s:.2f} s")
+    require(counts == want, "frozen_phonon_haadf launches")
+    require(img.shape == (4, 4) and np.isfinite(img).all() and img.min() > 0,
+            "frozen-phonon HAADF image")
+    patt, dcounts, s = launches_of(lambda: thermal.frozen_phonon_diffraction(
+        traj, n_configs=n_configs, generator=gen(), device=dev))
+    dwant = want_counts(k6=n_configs)
+    print(f"  frozen_phonon_diffraction, plane wave: launches {dcounts}, "
+          f"expected {dwant}; K6 engine {fr.last_launch.get('engine')}; pattern "
+          f"{patt.shape}, sum {patt.sum():.4e}; {s:.2f} s")
+    require(dcounts == dwant and fr.last_launch.get("engine") == "mixed",
+            "frozen_phonon_diffraction launches")
+    require(patt.shape == (n, n) and np.isfinite(patt).all()
+            and patt.sum() > 0, "frozen-phonon diffraction pattern")
+    counts["k6"] = dcounts["k6"]
+    return counts
+
+
+def surface_phase(dev, card, lx=102.35, n=N_GRID):
+    """Phase 15: Potential -> Propagate on frame 0 of phase 5's box at 16
+    probes, against the plain multislice. Returns the launch counts."""
+    import numpy as np
+    import pyslice_tpu_torch as pt
+
+    traj = hbn_box(lx, 1)
+    g = pt.grid_from_trajectory(traj, sampling=0.1, slice_thickness=0.5)
+    pot = pt.Potential(g.xs, g.ys, g.zs, traj.positions[0], traj.atom_types,
+                       device=dev)
+    probe = pt.create_batched_probes(
+        pt.Probe(g.xs, g.ys, 30.0, 100e3, device=dev),
+        pt.probe_grid([10, 90], [10, 90], 4, 4))
+    out, counts, s = launches_of(lambda: pt.Propagate(probe, pot))
+    want = want_counts(a=g.nz, b=g.nz - 1)
+    print(f"  Potential {tuple(pot.array.shape)} on {pot.device}, Propagate "
+          f"{tuple(out.shape)}: launches {counts}, expected {want}")
+    require((g.nx, g.ny) == (n, n) and tuple(out.shape) == (16, n, n),
+            "Propagate shape")
+    require(counts == want, "Propagate launches")
+    dz = float(np.asarray(pot.zs)[1] - np.asarray(pot.zs)[0])
+    check("Propagate vs plain multislice", out,
+          pt.multislice(probe.array, pot.array_szy, pot.kxs, pot.kys,
+                        eV=100e3, dz=dz, fused=False))
+    return counts
 
 
 def main():
@@ -925,8 +1455,27 @@ def main():
     print(f"[11] refine_structure at {N_GRID}^2 (A, B, K7):")
     k7 += refine_phase(data, calc, traj)
     del data, calc
-    counts.update(k4=odd["k4"], k5=odd["k5"], k6_mixed=k6_mixed,
-                  k6_pow2=k6_pow2, k7=k7, k8=k8)
+    print(f"[12] config 5: StreamingTACAW at {STREAM_SCAN ** 2} probes x "
+          "2048^2 (A, B, C), StreamingHAADF, against the plain stream and "
+          "the batch path:")
+    streamed, setup, inten = stream_phase(dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        print("[13] the same frames through a gzipped dump, TrajectoryStream "
+              "and a checkpoint resume at 2048^2:")
+        resumed = resume_phase(dev, card, setup, inten, tmp)
+    del setup, inten
+    print(f"[14a] the S-matrix against the direct route, {SM_SCAN ** 2} "
+          "probes at 512^2 (K6):")
+    k6_sm = smatrix_phase(dev, card)
+    print(f"[14b] frozen phonons on the {N_ODD}^2 box (K4, K5; K6):")
+    thermal = thermal_phase(dev, card)
+    print(f"[15] Potential -> Propagate at 16 probes x {N_GRID}^2 (A, B):")
+    surface = surface_phase(dev, card)
+    counts.update(k4=odd["k4"] + thermal["k4"], k5=odd["k5"] + thermal["k5"],
+                  k6_mixed=k6_mixed + thermal["k6"],
+                  k6_pow2=k6_pow2 + k6_sm, k7=k7, k8=k8)
+    for k in ("a", "b", "c"):
+        counts[k] += streamed[k] + resumed[k] + surface[k]
     for k, rec in records.items():
         rec["launches"] = counts[k]
     print(json.dumps({"kernels": [records[k] for k in KERNELS]}))

@@ -11,25 +11,38 @@ hand-written CUDA kernels (``ops/csrc/*.cu``) on an NVIDIA card. Ingest:
 kernels), ``msp_reconstruct`` (multislice ptychography) and the structure
 and aberration refinements of ``engine.inverse``.
 
-The device is always explicit (``MultisliceCalculator(device="cuda")``).
+Config 5's streaming path: ``StreamingTACAW`` / ``StreamingHAADF``
+(``engine.streaming``, O(selected bins) of state) fed by
+``TrajectoryStream`` (``io.stream``), the S-matrix (``engine.smatrix``),
+the frozen-phonon facades (``engine.thermal``) and the detectors
+(``analysis.detectors``). The reference's direct surface: ``Potential``
+-> ``Propagate``, ``kirkland``, ``loadKirkland``, ``getZfromElementName``.
+
+Entry points run on the card unless the caller passes ``device="cpu"``;
+the device is explicit wherever a tensor is made.
 Importing the package switches TF32 off for float32 matrix products
 (``core.dtypes``).
 """
 
 from .core.constants import (C_LIGHT, H_PLANCK, M_ELECTRON, Q_ELECTRON,
                              interaction_parameter, m_effective, wavelength)
-from .core.dtypes import DOUBLE, SINGLE, Precision, get_precision
+from .core.dtypes import (DOUBLE, SINGLE, Precision, get_precision,
+                          set_default_precision)
 from .core.grids import (Grid, grid_from_box, grid_from_box_matrix,
                          grid_from_trajectory, gridFromTrajectory)
 from .data.trajectory import Trajectory
 from .io.loader import TrajectoryLoader
+from .io.stream import TrajectoryStream
 from .physics.kirkland import element_to_z, form_factor, z_to_element
-from .physics.potential import RasterizerPlan, make_plan, rasterize
+from .physics.potential import Potential, RasterizerPlan, make_plan, rasterize
 from .physics.aberrations import Aberrations
 from .physics.probe import Probe, create_batched_probes, probe_grid, shift_probes
-from .physics.propagate import multislice
+from .physics.propagate import Propagate, multislice
 from .physics.adjoint import multislice_diff
 from .engine.calculator import MultisliceCalculator
+from .engine.smatrix import (BeamSet, SMatrix, build_beams, compute_smatrix,
+                             smatrix_exit_kspace, smatrix_reduce)
+from .engine.streaming import StreamingHAADF, StreamingTACAW
 from .engine.inverse import (refine_aberrations, refine_structure,
                              refine_structure_tilt_series)
 from .analysis.wf_data import WFData
@@ -37,10 +50,40 @@ from .analysis.tacaw import TACAWData
 from .analysis.haadf import HAADFData
 from .analysis.ptychography import msp_reconstruct
 
+
+def getZfromElementName(element: str) -> int:
+    """Reference-compatible name (potentials.py:98-111), with the Tl bug
+    fixed."""
+    return element_to_z(element)
+
+
+def kirkland(qsq, Z, device="cuda"):
+    """Reference-compatible form-factor entry point (potentials.py:50-96):
+    f(q^2) on ``qsq`` for an atomic number or element name ``Z``. A tensor
+    stays on its own device; an array goes to ``device`` (the card unless
+    ``device="cpu"``)."""
+    import numpy as np
+    import torch
+    if isinstance(Z, str):
+        Z = element_to_z(Z)
+    if not isinstance(qsq, torch.Tensor):
+        qsq = torch.as_tensor(np.asarray(qsq), device=device)
+    return form_factor(qsq, Z)
+
+
+def loadKirkland(device=None):
+    """Reference-compatible parameter loader (potentials.py:134-185): the
+    (103, 3, 4) host table, parsed once and cached."""
+    del device
+    from .physics.kirkland import load_parameters
+    return load_parameters()
+
+
 __all__ = [
     "C_LIGHT", "H_PLANCK", "M_ELECTRON", "Q_ELECTRON",
     "interaction_parameter", "m_effective", "wavelength",
     "DOUBLE", "SINGLE", "Precision", "get_precision",
+    "set_default_precision",
     "Grid", "grid_from_box", "grid_from_box_matrix", "grid_from_trajectory",
     "gridFromTrajectory", "Trajectory", "TrajectoryLoader", "element_to_z", "form_factor",
     "z_to_element", "RasterizerPlan", "make_plan", "rasterize", "Probe",
@@ -48,4 +91,8 @@ __all__ = [
     "MultisliceCalculator", "WFData", "TACAWData", "HAADFData",
     "Aberrations", "multislice_diff", "msp_reconstruct", "refine_structure",
     "refine_aberrations", "refine_structure_tilt_series",
+    "TrajectoryStream", "Potential", "Propagate", "BeamSet", "SMatrix",
+    "build_beams", "compute_smatrix", "smatrix_exit_kspace",
+    "smatrix_reduce", "StreamingTACAW", "StreamingHAADF", "kirkland",
+    "loadKirkland", "getZfromElementName",
 ]

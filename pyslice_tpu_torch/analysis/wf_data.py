@@ -60,9 +60,10 @@ class WFData:
         )
 
     @classmethod
-    def load(cls, path, device="cpu") -> "WFData":
-        """Load a saved WFData; its probe is rebuilt on ``device`` and the
-        wave data stays a host array."""
+    def load(cls, path, device="cuda") -> "WFData":
+        """Load a saved WFData; its probe is rebuilt on ``device`` (the
+        card unless ``device="cpu"``) and the wave data stays a host
+        array."""
         from ..physics.probe import Probe
         with np.load(Path(path)) as z:
             probe = Probe(z["probe_xs"], z["probe_ys"],

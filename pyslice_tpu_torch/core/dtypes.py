@@ -43,12 +43,14 @@ class Precision:
 
 SINGLE = Precision(real=torch.float32, complex=torch.complex64)
 DOUBLE = Precision(real=torch.float64, complex=torch.complex128)
+_DEFAULT = SINGLE
 
 
 def get_precision(precision=None) -> Precision:
-    """Resolve a precision argument: None -> SINGLE, str -> named policy."""
+    """Resolve a precision argument: None -> the default (SINGLE unless
+    ``set_default_precision`` changed it), str -> named policy."""
     if precision is None:
-        return SINGLE
+        return _DEFAULT
     if isinstance(precision, Precision):
         return precision
     if isinstance(precision, str):
@@ -58,6 +60,13 @@ def get_precision(precision=None) -> Precision:
             return DOUBLE
         raise ValueError(f"Unknown precision {precision!r}")
     raise TypeError(f"Bad precision spec: {precision!r}")
+
+
+def set_default_precision(precision) -> None:
+    """Make ``precision`` what ``get_precision(None)`` resolves to, for
+    the whole process (the JAX package's ``set_default_precision``)."""
+    global _DEFAULT
+    _DEFAULT = get_precision(precision)
 
 
 def as_real(a, precision: Precision, device) -> torch.Tensor:

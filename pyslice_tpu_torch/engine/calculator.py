@@ -44,6 +44,14 @@ from .pipeline import SimSpec, frame_exit_waves, simulate_frames_into
 logger = logging.getLogger(__name__)
 
 
+def device_memory_limit(device: torch.device) -> Optional[int]:
+    """Free bytes on a CUDA ``device`` (``torch.cuda.mem_get_info``), or
+    None for the CPU, whose host memory is not budgeted here."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[0]
+
+
 class MultisliceCalculator:
 
     def __init__(self, device, precision=None):
@@ -177,21 +185,31 @@ class MultisliceCalculator:
                                    bandwidth_limit=bandwidth_limit,
                                    tilt=tilt)
 
-        if device_output and self.device.type == "cuda":
-            # Warn early instead of running out of memory mid-run.
-            est = (self.n_probes * self.n_frames * self.nx * self.ny
-                   * self._n_layers()
-                   * torch.empty((), dtype=self.precision.complex).element_size())
-            total = torch.cuda.get_device_properties(self.device).total_memory
-            if est > 0.5 * total:
-                logger.warning(
-                    "device_output=True keeps a %.1f GiB exit-wave array on "
-                    "a %.0f GiB device", est / 2 ** 30, total / 2 ** 30)
+        if device_output:
+            self._warn_resident(device_memory_limit(self.device))
 
         self.output_dir = (Path(cache_root)
                            / f"torch_{self._generate_cache_key()}")
         if self.use_cache:
             self.output_dir.mkdir(parents=True, exist_ok=True)
+
+    def _warn_resident(self, limit: Optional[int]) -> None:
+        """Warn at set-up, not mid-run, when the resident exit-wave array
+        would take more than half of ``limit`` bytes, and point at the
+        streaming engines, which exist for larger-than-memory runs."""
+        n_layers = self._n_layers()
+        est = (self.n_probes * self.n_frames * self.nx * self.ny * n_layers
+               * torch.empty((), dtype=self.precision.complex).element_size())
+        if limit is not None and est > 0.5 * limit:
+            logger.warning(
+                "device_output=True keeps a %.1f GiB exit-wave array "
+                "resident (%d probes x %d frames x %dx%d%s) against "
+                "%.1f GiB of free device memory. For larger-than-memory "
+                "runs use engine.streaming.StreamingTACAW/StreamingHAADF "
+                "(O(selected-bins) memory) or record fewer layers.",
+                est / 2 ** 30, self.n_probes, self.n_frames, self.nx,
+                self.ny, f" x {n_layers} layers" if n_layers > 1 else "",
+                limit / 2 ** 30)
 
     def _n_layers(self) -> int:
         return len(self.record_layers) if self.record_layers else 1

@@ -485,14 +485,17 @@ def write_lammps_dump_binary(path, atom_types, positions, velocities,
 
 
 def write_lammps_dump(path, atom_types, positions, velocities, box_matrix,
-                      timestep_stride: int = 1) -> None:
+                      timestep_stride: int = 1, digits: int = 8) -> None:
     """Write an orthogonal-box text dump (used by the fixture generator and
-    loader round-trip tests)."""
+    loader round-trip tests). Positions and velocities carry ``digits``
+    significant digits (8, the JAX package's format, rounds a 200 A
+    coordinate by up to 5e-6 A; 17 round-trips float64 exactly)."""
     atom_types = np.asarray(atom_types)
     positions = np.asarray(positions)
     velocities = np.asarray(velocities)
     diag = np.diag(np.asarray(box_matrix))
     n_frames, n_atoms = positions.shape[:2]
+    row = "%d %d" + f" %.{int(digits)}g" * 6 + "\n"
     with open(path, "w") as f:
         for t in range(n_frames):
             f.write("ITEM: TIMESTEP\n%d\n" % (t * timestep_stride))
@@ -502,7 +505,7 @@ def write_lammps_dump(path, atom_types, positions, velocities, box_matrix,
                 f.write("0.0 %.10g\n" % diag[d])
             f.write("ITEM: ATOMS id type x y z vx vy vz\n")
             for a in range(n_atoms):
-                f.write("%d %d %.8g %.8g %.8g %.8g %.8g %.8g\n" % (
+                f.write(row % (
                     a + 1, int(atom_types[a]),
                     positions[t, a, 0], positions[t, a, 1], positions[t, a, 2],
                     velocities[t, a, 0], velocities[t, a, 1], velocities[t, a, 2]))

@@ -400,3 +400,47 @@ def validate_frame(positions, plan: RasterizerPlan) -> None:
             f"type Z={plan.unique_z[b // plan.nz]} in slice {b % plan.nz} "
             f"exceed the planned per-bucket capacity a_max={plan.a_max}. "
             "Rebuild the plan including this frame or increase pad_fraction.")
+
+
+class Potential:
+    """Reference-compatible facade (reference potentials.py:187-386), the
+    JAX package's ``Potential``. The frame's potential is rasterized on
+    ``device`` (the card unless ``device="cpu"``): ``array_szy`` is the
+    slice-major (nz, nx, ny) tensor the propagation takes, ``array`` the
+    reference layout (nx, ny, n_slices).
+    """
+
+    def __init__(self, xs, ys, zs, positions, atomTypes, kind: str = "kirkland",
+                 device="cuda", slice_axis: int = 2, precision=None,
+                 plan: RasterizerPlan = None, debye_waller=None):
+        self.precision = get_precision(precision)
+        self.device = torch.device(device)
+        self.xs = np.asarray(xs, dtype=np.float64)
+        self.ys = np.asarray(ys, dtype=np.float64)
+        self.zs = np.asarray(zs, dtype=np.float64)
+        self.slice_axis = slice_axis
+        all_axes = [0, 1, 2]
+        all_axes.remove(slice_axis)
+        self.inplane_axis1, self.inplane_axis2 = all_axes
+        self.slice_coords = [self.xs, self.ys, self.zs][slice_axis]
+        self.n_slices = len(self.slice_coords)
+        self.kxs = np.fft.fftfreq(len(self.xs), d=self.xs[1] - self.xs[0])
+        self.kys = np.fft.fftfreq(len(self.ys), d=self.ys[1] - self.ys[0])
+        if plan is None:
+            plan = make_plan(self.xs, self.ys, self.zs, positions, atomTypes,
+                             kind=kind, slice_axis=slice_axis,
+                             debye_waller=debye_waller)
+        elif debye_waller is not None:
+            raise ValueError("pass debye_waller to make_plan when "
+                             "supplying a prebuilt plan")
+        self.plan = plan
+        self.array_szy = rasterize(np.asarray(positions), plan,
+                                   self.precision, device=self.device)
+
+    @property
+    def array(self) -> torch.Tensor:
+        """(nx, ny, n_slices), the reference's layout (potentials.py:348)."""
+        return self.array_szy.permute(1, 2, 0)
+
+    def to_cpu(self) -> np.ndarray:
+        return self.array.cpu().numpy()

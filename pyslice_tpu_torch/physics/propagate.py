@@ -248,3 +248,27 @@ def _multislice_plain(psi, potential_szy, kxs, kys, *, sigma, lam, dz,
             psi = fresnel(snap)
         z = layer + 1
     return torch.stack(snapshots, dim=0)
+
+
+def Propagate(probe, potential, device=None):
+    """Reference-compatible facade (reference multislice.py:237-299), the
+    JAX package's ``Propagate``: the exit wave of ``probe`` through
+    ``potential`` with the reference's squeeze semantics (a 2-D probe gives
+    a 2-D exit wave, a batch (n_probes, nx, ny)). It runs on the probe's
+    device, or on ``device`` when given, and does not change
+    ``probe.array`` (reference bug 7). The Fresnel dz is always the
+    spacing of ``potential.zs``, whatever the slice axis (reference
+    multislice.py:266)."""
+    prec = probe.precision
+    psi = probe.array
+    if device is not None:
+        psi = psi.to(device)
+    squeeze = psi.dim() == 2
+    if squeeze:
+        psi = psi[None]
+    zs = np.asarray(potential.zs)
+    dz = float(zs[1] - zs[0]) if len(zs) > 1 else 0.5
+    out = multislice(psi, potential.array_szy.to(psi.device),
+                     potential.kxs, potential.kys, eV=probe.eV,
+                     lam=probe.wavelength, dz=dz, precision=prec)
+    return out[0] if squeeze else out

@@ -179,6 +179,6 @@ def test_unported_options_raise():
 def test_wfdata_save_load_roundtrip(tmp_path):
     twf, _ = _run_both("single", device_output=True, carry=False)
     twf.save(tmp_path / "wf.npz")
-    back = tt.WFData.load(tmp_path / "wf.npz")
+    back = tt.WFData.load(tmp_path / "wf.npz", device="cpu")
     np.testing.assert_array_equal(back.wavefunction_data, _wave(twf))
     assert back.probe.wavelength == twf.probe.wavelength

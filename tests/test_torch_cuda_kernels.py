@@ -62,8 +62,11 @@ def _phase(dev, nx, ny, seed=1, scale=20.0):
     return torch.randn((nx, ny), device=dev, generator=g) * scale
 
 
+# (16, 2048, 2048) and (64, 2048, 2048): config 5's probe chunk and its
+# whole probe batch
 SHAPES = [(2, 128, 128), (3, 256, 512), (16, 1024, 1024), (1, 2048, 2048),
-          (2, 4096, 128), (1, 128, 4096)]
+          (2, 4096, 128), (1, 128, 4096), (16, 2048, 2048),
+          (64, 2048, 2048)]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -300,6 +303,24 @@ def test_resident_loop_matches_plain(dev, shape, P, kspace):
         assert fs.launches["k6"] == n0 + 1
         _ok(got, fr._plain_resident_loop(psi, t, prop, kspace))
         _resident_plan_ok(psi, t)
+
+
+@pytest.mark.parametrize("kspace", [False, True])
+def test_resident_loop_at_256_planes(dev, kspace):
+    """K6 at 256 x 512^2 x 14, the direct route's probe chunks of a 2,304-
+    probe scan (512^2 goes to K6 at any probe count), and at 64 planes,
+    the S-matrix's beam chunks."""
+    for P in (64, 256):
+        psi = _wave(dev, P, 512, 512, seed=9)
+        g = torch.Generator(device=dev).manual_seed(10)
+        v = torch.randn((14, 512, 512), device=dev, generator=g) * 20
+        prop = _prop(dev, 512, 512)
+        for t in (v, torch.complex(torch.cos(v), torch.sin(v))):
+            n0 = fs.launches["k6"]
+            got = fr.resident_loop(psi, t, prop, kspace)
+            assert fs.launches["k6"] == n0 + 1
+            _ok(got, fr._plain_resident_loop(psi, t, prop, kspace))
+            _resident_plan_ok(psi, t)
 
 
 @pytest.mark.parametrize("n", [256, 1023, 1024, 1152])
