@@ -67,7 +67,35 @@ Phases, each printing one line (or a few) and failing hard:
    frozen_phonon_diffraction (K6 mixed radix) on the 1023^2 box;
 15. Potential -> Propagate at 16 probes x 1024^2 (A, B) against the plain
    multislice;
-16. a JSON line per kernel, the nvidia-smi line, and the final JSON line.
+16. HRTEM (hrtem_image) on the 1023^2 box of phase 6 at Scherzer focus
+   (Cs 1.2 mm, 20 mrad objective aperture; Cc 1.2 mm, dE 0.8 eV over 7
+   chromatic nodes; a 0.5 mrad illumination cone as 5 x 5 tilts, snapped
+   to 25 distinct lattice tilts and printed; 4 frozen-phonon
+   configurations): the tilt batch through K4/K5 (4 x 14, 4 x 13), with
+   fast_grid at 1024^2 through A/B/C (4 x (14, 13, 1)), and the coherent
+   plane wave through K6 (4, mixed engine), each run with the kernels and
+   plain in turns, launch counts reset before and checked after, images
+   held to 1e-4 / the residual bar, contrast and ms a configuration;
+17. one exit wave of that box (K6), its focal series at 10 defoci and
+   iwfr_reconstruct for 400 iterations (torch.fft), as
+   tests/test_ewr.py's multislice round trip: the residual falls 100x and
+   the wave agrees with the truth to 5e-3 after removing its global
+   phase; the residual after 50 iterations, and ms an iteration;
+18. on that box, chromatic_stem over 16 x 16 probes at 30 mrad (7 nodes x
+   4 configurations, 0.8 A source blur; K4/K5 392/364 launches),
+   precession_diffraction at 20 mrad (12 azimuths x 4 configurations; K6
+   48) and chromatic_diffraction with a 20 mrad CBED probe (K6 28), each
+   with the kernels and plain, held as phase 16;
+19. phase retrieval at 256^2 (tests/test_ptychography.py's weak-phase
+   problem at a full scan: 64 x 64 positions at 0.4 A, 20 mrad, 2
+   slices): the exit waves through pt.multislice in chunks of 256 (K6's
+   register engine, 16 launches) against the plain loop, scan_grid_data
+   on the 1.07 GB stack, SSB on all 4,096 patterns (correlation > 0.9,
+   radian ratio 0.9-1.1), iCoM (> 0.95, 0.85-1.15, curl < 0.2) and ePIE
+   on the 32 x 32 subset for 40 sweeps with the probe known (loss falls
+   10x, correlation > 0.8); s a sweep and the sweep's idle share
+   (torch.profiler's device time against the wall);
+20. a JSON line per kernel, the nvidia-smi line, and the final JSON line.
 
 Each kernel's record carries its bound: the least time an H100 could take
 for the launch timed, the larger of the bytes it must move (each input
@@ -1407,6 +1435,432 @@ def surface_phase(dev, card, lx=102.35, n=N_GRID):
     return counts
 
 
+# --- the imaging toolkit (phases 16-19) --------------------------------------
+
+HR_LX, HR_CONFIGS = 102.25, 4           # phase 16's box: 1023^2 x 14 slices
+HR_CS = HR_CC = 1.2e7                   # 1.2 mm, in Angstrom
+HR_DE, HR_NODES = 0.8, 7                # eV (FWHM), chromatic nodes
+HR_APERTURE, HR_BEAM, HR_TILTS = 20.0, 0.5, 5   # mrad, mrad, 5 x 5 tilts
+EWR_DEFOCI = tuple(float(d) for d in range(-400, 501, 100))  # A
+EWR_ITERS = 400   # tests/test_ewr.py's multislice round trip: 400, 5e-3
+CS_SCAN, CS_MRAD, CS_FWHM = 16, 30.0, 0.8   # chromatic_stem: 256 probes
+PED_MRAD, PED_AZIMUTHS = 20.0, 12
+PR_N, PR_SAMPLING, PR_DZ = 256, 0.1, 1.0    # phase retrieval at 256^2
+PR_ATOMS, PR_MRAD, PR_MAX_PHASE = 71, 20.0, 0.05
+PR_SCAN, PR_STEP, PR_CHUNK = 64, 0.4, 256   # 64 x 64 positions at 0.4 A
+EPIE_EVERY, EPIE_SWEEPS = 2, 40             # ePIE on the 32 x 32 subset
+
+
+def generator():
+    """A CPU generator seeded 0: every run of a path draws the same
+    frozen-phonon configurations."""
+    import torch
+    return torch.Generator().manual_seed(0)
+
+
+def kernel_vs_plain(name, fn, want, unit, n_units, rounds=1):
+    """fn() with the kernels ("auto") and with the plain path ("off") in
+    turns: one untimed warm-up run each way, then ``rounds`` rounds (the
+    order reversed every other round), each run's launch counts reset just
+    before it and read just after: ``want`` with the kernels, none plain.
+    Prints the median wall time a unit of work of each way, and the device
+    time of one more kernel run (``device_seconds``) with the share of the
+    kernel wall the device was idle. Returns (the kernel run's output, the
+    plain run's, the first timed kernel run's counts)."""
+    import numpy as np
+    ways = [("kernels", "auto", want), ("plain torch.fft", "off",
+                                        want_counts())]
+    for _, flag, _ in ways:
+        with dispatch(flag):
+            fn()
+    outs, times, first = {}, {w[0]: [] for w in ways}, None
+    for r in range(rounds):
+        for label, flag, w in (ways if r % 2 == 0 else ways[::-1]):
+            with dispatch(flag):
+                out, counts, s = launches_of(fn)
+            if label == "kernels" and first is None:
+                print(f"  {name}: launches {counts}, expected {w}")
+                first = counts
+            require(counts == w, f"{name} ({label}): launches {counts}")
+            outs[label] = out
+            times[label].append(1e3 * s / n_units)
+    med = {label: float(np.median(t)) for label, t in times.items()}
+    with dispatch("auto"):
+        dev_ms = 1e3 * device_seconds(fn) / n_units
+    print(f"  {name}: ms/{unit} (median of {rounds} in turns, after a "
+          "warm-up) " + ", ".join(f"{label} {ms:.2f}"
+                                  for label, ms in med.items())
+          + f"; kernels' device time {dev_ms:.2f} ms/{unit}, idle "
+          f"{100 * (1 - dev_ms / med['kernels']):.1f}% of the wall")
+    return outs["kernels"], outs["plain torch.fft"], first
+
+
+def check_np(name, got, want):
+    """check() on two host arrays."""
+    import numpy as np
+    import torch
+    return check(name, torch.as_tensor(np.asarray(got)),
+                 torch.as_tensor(np.asarray(want)))
+
+
+def add_counts(total, counts):
+    """Sum launch counts, K6 under its engine's record key."""
+    from pyslice_tpu_torch.ops import fused_step_resident as fr
+    for k, v in counts.items():
+        if k == "k6":
+            k = "k6_pow2" if fr.last_launch.get("engine") == "pow2" \
+                else "k6_mixed"
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def hrtem_phase(dev, card, lx=HR_LX, n=N_ODD, n_configs=HR_CONFIGS,
+                n_tilts=HR_TILTS, beam=HR_BEAM, rounds=2):
+    """Phase 16: hrtem_image on the 1023^2 hBN box at Scherzer focus
+    (Cs 1.2 mm, 20 mrad objective aperture, Cc 1.2 mm at dE 0.8 eV over 7
+    nodes, a 0.5 mrad illumination cone as 5 x 5 tilts snapped to distinct
+    lattice tilts, 4 frozen-phonon configurations): the tilt batch through
+    K4/K5 at 1023^2 and through A/B/C with fast_grid (1024^2), the coherent
+    plane wave through K6, each against the plain path. Returns the launch
+    counts of the kernel runs."""
+    import numpy as np
+    import pyslice_tpu_torch as pt
+    from pyslice_tpu_torch.core.constants import wavelength
+    from pyslice_tpu_torch.engine import ctem
+    from pyslice_tpu_torch.ops import fused_step_resident as fr
+
+    traj = hbn_box(lx, 1)
+    lam = wavelength(100e3)
+    ab = pt.Aberrations(C3=HR_CS)
+    df = ab.scherzer_defocus(lam)
+    g = pt.grid_from_trajectory(traj, sampling=0.1, slice_thickness=0.5)
+    tilts, _ = ctem._tilt_series(beam, n_tilts, lam)
+    quanta = np.round(ctem.snapped_tilts(tilts, g.lx, g.ly)
+                      * np.array([g.lx, g.ly])).astype(int)
+    print(f"  Scherzer defocus {df:.2f} A; {len(quanta)} tilts in units of "
+          f"1/{g.lx} A^-1: {sorted(set(map(tuple, quanta.tolist())))}")
+    require(len(set(map(tuple, quanta.tolist()))) == n_tilts ** 2,
+            "the snapped tilts are not distinct")
+    from pyslice_tpu_torch.engine.coherence import (defocus_series,
+                                                    defocus_spread)
+    nodes, _ = defocus_series(defocus_spread(HR_CC, HR_DE, 100e3), HR_NODES)
+    t0 = time.perf_counter()
+    ctem._defocus_transfers(g.kxs(), g.kys(), lam,
+                            pt.Aberrations(C1=df, C3=HR_CS), nodes,
+                            HR_APERTURE, None, None)
+    print(f"  the {HR_NODES} transfer functions a call (NumPy on the host): "
+          f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+
+    def run(beam=beam, fast_grid=False):
+        return lambda: pt.hrtem_image(
+            traj, aberrations=ab, defocus=df, objective_aperture=HR_APERTURE,
+            Cc=HR_CC, dE=HR_DE, n_nodes=HR_NODES, beam_semiangle=beam,
+            n_tilts=n_tilts, n_configs=n_configs, generator=generator(),
+            fast_grid=fast_grid, device=dev)
+
+    nz = g.nz
+    fast = pt.grid_from_trajectory(traj, 0.1, 0.5, fast_grid=True).nx
+    total, images = {}, {}
+    for key, fn, want, m in (
+            ("tilts", run(), want_counts(k4=n_configs * nz,
+                                         k5=n_configs * (nz - 1)), n),
+            ("fast_grid", run(fast_grid=True),
+             want_counts(a=n_configs * nz, b=n_configs * (nz - 1),
+                         c=n_configs), fast),
+            ("coherent", run(beam=0.0), want_counts(k6=n_configs), n)):
+        (img, xs, ys), (plain, _, _), counts = kernel_vs_plain(
+            f"HRTEM {key} ({m}^2)", fn, want, "configuration", n_configs,
+            rounds)
+        if key == "coherent":
+            require(fr.last_launch.get("engine") == "mixed",
+                    "the coherent image ran not K6's mixed engine")
+        add_counts(total, counts)
+        check_np(f"HRTEM {key} image, kernels vs plain", img, plain)
+        contrast = float(img.std() / img.mean())
+        print(f"  HRTEM {key} image {img.shape}: mean {img.mean():.4e}, "
+              f"contrast (std/mean) {contrast:.4e}")
+        require(img.shape == (m, m) and (len(xs), len(ys)) == (m, m)
+                and np.isfinite(img).all() and img.min() >= 0
+                and contrast > 1e-4, f"HRTEM {key} image")
+        images[key] = img
+    # a partially coherent cone blurs: no more contrast than the plane wave
+    require(images["tilts"].std() <= images["coherent"].std() * 1.01,
+            "the tilt average raised the contrast")
+    return total
+
+
+def ewr_phase(dev, card, lx=HR_LX, n=N_ODD, defoci=EWR_DEFOCI,
+              n_iters=EWR_ITERS):
+    """Phase 17: one exit wave of phase 16's box (a plane wave through K6),
+    its focal series at 10 defoci and iwfr_reconstruct from it (plain
+    torch.fft; no kernel launches). Holds tests/test_ewr.py's bars: the
+    residual falls, and the wave agrees with the truth up to its global
+    phase. Returns the launch counts of the exit wave."""
+    import numpy as np
+    import torch
+    import pyslice_tpu_torch as pt
+    from pyslice_tpu_torch.core.constants import wavelength
+    from pyslice_tpu_torch.engine.pipeline import SimSpec, frame_exit_waves
+
+    traj = hbn_box(lx, 1)
+    g = pt.grid_from_trajectory(traj, sampling=0.1, slice_thickness=0.5)
+    plan = pt.make_plan(g.xs, g.ys, g.zs, traj.positions, traj.atom_types)
+    spec = SimSpec.create(g, plan, 100e3)
+    wave = torch.ones((1, n, n), dtype=torch.complex64, device=dev)
+    kw, counts, _ = launches_of(
+        lambda: frame_exit_waves(traj.positions[0], wave, spec)[0, ..., 0])
+    require(counts == want_counts(k6=1), f"exit wave launches {counts}")
+    counts = add_counts({}, counts)
+    psi = torch.fft.ifft2(torch.fft.ifftshift(kw))
+    lam = wavelength(100e3)
+
+    def solve():
+        imgs = pt.focal_series(psi, defoci, plan.kxs, plan.kys, lam=lam)
+        return imgs, pt.iwfr_reconstruct(imgs, defoci, plan.kxs, plan.kys,
+                                         lam=lam, n_iters=n_iters)
+
+    (imgs, (rec, errs)), ecounts, s = launches_of(solve)
+    require(ecounts == want_counts(), f"focal series / IWFR ran kernels "
+            f"{ecounts}")
+    truth = psi.cpu().numpy()
+    aligned = rec * np.exp(1j * np.angle(np.vdot(rec.ravel(),
+                                                 truth.ravel())))
+    rel = float(np.linalg.norm(aligned - truth) / np.linalg.norm(truth))
+    print(f"  focal series {tuple(imgs.shape)} at defoci {list(defoci)} "
+          f"A; IWFR {n_iters} iterations: residual {errs[0]:.3e} -> "
+          f"{errs[min(49, n_iters - 1)]:.3e} (50) -> {errs[-1]:.3e}, "
+          f"|rec - truth| / |truth| {rel:.3e} (global phase "
+          f"removed); {1e3 * s / n_iters:.2f} ms/iteration, focal series "
+          "included; card " + card)
+    require(np.isfinite(errs).all() and errs[-1] < errs[0] * 1e-2,
+            "the IWFR residual did not fall")
+    require(rel < 5e-3, "IWFR disagrees with the exit wave")
+    return counts
+
+
+def coherence_phase(dev, card, lx=HR_LX, n=N_ODD, n_configs=HR_CONFIGS,
+                    scan=CS_SCAN):
+    """Phase 18: on the 1023^2 box, chromatic_stem (16 x 16 probes at 30
+    mrad, 7 nodes x 4 configurations, 0.8 A source blur; K4/K5 on the
+    direct route), precession_diffraction (20 mrad, 12 azimuths x 4
+    configurations; K6) and chromatic_diffraction (a 20 mrad CBED probe,
+    7 nodes x 4 configurations; K6), each against the plain path. Returns
+    the launch counts of the kernel runs."""
+    import numpy as np
+    import pyslice_tpu_torch as pt
+    from pyslice_tpu_torch.engine import coherence, smatrix
+
+    traj = hbn_box(lx, 1)
+    nz = pt.grid_from_trajectory(traj, 0.1, 0.5).nz
+    pg = pt.probe_grid([10, 90], [10, 90], scan, scan)
+    require(len(pg) < smatrix.SMATRIX_MIN_PROBES, "scan on the S-matrix")
+    runs = n_configs * HR_NODES
+    total = {}
+    (img, xs, ys), (plain, _, _), counts = kernel_vs_plain(
+        f"chromatic_stem, {len(pg)} probes", lambda: coherence.chromatic_stem(
+            traj, pg, Cc=HR_CC, dE=HR_DE, aperture=CS_MRAD,
+            n_nodes=HR_NODES, n_configs=n_configs, generator=generator(),
+            source_fwhm=CS_FWHM, device=dev),
+        want_counts(k4=runs * nz, k5=runs * (nz - 1)),
+        "configuration and node", runs)
+    add_counts(total, counts)
+    check_np("chromatic_stem image, kernels vs plain", img, plain)
+    print(f"  chromatic_stem image {img.shape}, range {img.min():.4e}.."
+          f"{img.max():.4e}")
+    require(img.shape == (scan, scan) and np.isfinite(img).all()
+            and img.min() > 0, "chromatic_stem image")
+    for name, fn, n_runs in (
+            (f"precession_diffraction, {PED_MRAD} mrad x {PED_AZIMUTHS} "
+             "azimuths", lambda: pt.precession_diffraction(
+                 traj, PED_MRAD, n_azimuth=PED_AZIMUTHS, n_configs=n_configs,
+                 generator=generator(), device=dev),
+             PED_AZIMUTHS * n_configs),
+            (f"chromatic_diffraction, {PED_MRAD} mrad CBED",
+             lambda: coherence.chromatic_diffraction(
+                 traj, Cc=HR_CC, dE=HR_DE, aperture=PED_MRAD,
+                 n_nodes=HR_NODES, n_configs=n_configs,
+                 generator=generator(), device=dev), runs)):
+        pat, plain, counts = kernel_vs_plain(
+            name, fn, want_counts(k6=n_runs), "run", n_runs)
+        add_counts(total, counts)
+        check_np(f"{name.split(',')[0]}, kernels vs plain", pat, plain)
+        require(pat.shape == (n, n) and np.isfinite(pat).all()
+                and pat.min() >= 0 and pat.sum() > 0, f"{name} pattern")
+    return total
+
+
+def weak_phase_problem(dev, n, scan):
+    """tests/test_ptychography.py's problem at a full scan: a 256^2 grid
+    (xs = linspace(0, 25.6, 256, endpoint=False)), PR_ATOMS random B/N
+    atoms in two 1 A slices from NumPy's default_rng(3) (the fixture's
+    density), the potential scaled to a 0.05 rad maximum phase, 100 kV,
+    a 20 mrad probe, scan x scan positions at PR_STEP (64 x 64 at 0.4 A
+    on the card)."""
+    import numpy as np
+    import torch
+    import pyslice_tpu_torch as pt
+    from pyslice_tpu_torch.core.constants import interaction_parameter
+    lx = n * PR_SAMPLING
+    xs = np.linspace(0, lx, n, endpoint=False)
+    rng = np.random.default_rng(3)
+    pos = rng.random((1, PR_ATOMS, 3)) * np.array([lx, lx, 2 * PR_DZ - 0.1])
+    types = rng.choice([5, 7], PR_ATOMS).astype(np.int32)
+    plan = pt.make_plan(xs, xs, np.array([0.0, PR_DZ]), pos, types)
+    v = pt.rasterize(pos[0], plan, device=dev)
+    sigma = interaction_parameter(100e3)
+    v = v * (PR_MAX_PHASE / (sigma * v.abs().max()))
+    axis = np.arange(scan) * PR_STEP
+    positions = np.array([(sx, sy) for sx in axis for sy in axis])
+    base = pt.Probe(xs, xs, PR_MRAD, 100e3, device=dev)
+    return dict(v=v, base=base, axis=axis, positions=positions,
+                phi_true=(sigma * v.sum(dim=0)).double().cpu().numpy())
+
+
+def retrieval_phase(dev, card):
+    """Phase 19: 4D-STEM phase retrieval at 256^2. The exit waves of 4,096
+    positions through pt.multislice in chunks of 256 (K6's register engine,
+    2 slices) against the plain loop; scan_grid_data on the k-space waves;
+    SSB on all 4,096 patterns, iCoM, and ePIE on the 32 x 32 subset for 40
+    sweeps with the probe known, each held to tests/test_ptychography.py's
+    recovery bars. Returns the launch counts of the kernel run."""
+    import numpy as np
+    import torch
+    import pyslice_tpu_torch as pt
+    from pyslice_tpu_torch.analysis import ptychography as ptycho
+    from pyslice_tpu_torch.core.constants import wavelength
+
+    p = weak_phase_problem(dev, PR_N, PR_SCAN)
+    base, n = p["base"], PR_N
+    P = len(p["positions"])
+    n_chunks = P // PR_CHUNK
+
+    def exit_waves():
+        out = torch.empty((P, n, n), dtype=torch.complex64, device=dev)
+        for c in range(n_chunks):
+            sl = slice(c * PR_CHUNK, (c + 1) * PR_CHUNK)
+            probes = pt.shift_probes(base.array, base.kxs, base.kys,
+                                     p["positions"][sl])
+            out[sl] = pt.multislice(probes, p["v"], base.kxs, base.kys,
+                                    eV=100e3, dz=PR_DZ)
+        return out
+
+    ew, plain, counts = kernel_vs_plain(
+        f"exit waves, {P} positions in chunks of {PR_CHUNK} at {n}^2",
+        exit_waves, want_counts(k6=n_chunks), "chunk", n_chunks)
+    counts = add_counts({}, counts)
+    check("exit waves, kernels vs plain", ew, plain)
+    del plain
+    kwave = torch.fft.fftshift(torch.fft.fft2(ew), dim=(-2, -1))
+    del ew
+    kxs = np.fft.fftshift(base.kxs)
+    wf = pt.WFData(probe_positions=p["positions"], time=np.array([0.0]),
+                   kxs=kxs, kys=kxs, layer=np.array([0]),
+                   wavefunction_data=kwave[:, None, :, :, None], probe=base)
+    t0 = time.perf_counter()
+    sxs, sys_ys, data4d = pt.scan_grid_data(wf)
+    print(f"  scan_grid_data: {data4d.shape} {data4d.dtype}, "
+          f"{data4d.nbytes / 1e9:.2f} GB, {time.perf_counter() - t0:.2f} s")
+    require(data4d.shape == (PR_SCAN, PR_SCAN, n, n)
+            and np.allclose(sxs, p["axis"]), "scan_grid_data stack")
+    del wf, kwave
+    stack = torch.as_tensor(data4d, device=dev)
+    q_band = 2 * (PR_MRAD * 1e-3) / wavelength(100e3)
+    sub = round(PR_STEP / PR_SAMPLING)
+    truth_full = band_limit(p["phi_true"], base.kxs, q_band)
+    truth = truth_full[::sub, ::sub]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ssb = pt.ssb_reconstruct(stack, sxs, sys_ys, kxs, kxs, probe=base)
+    s_ssb = time.perf_counter() - t0
+    c, ratio = pearson(ssb["phase"], truth), spread_ratio(ssb["phase"],
+                                                          truth)
+    print(f"  SSB on {P} patterns: {s_ssb:.2f} s; phase correlation {c:.4f}"
+          f", radian ratio {ratio:.4f}; trotter pixels "
+          f"{int(ssb['trotter_pixels'].sum())}")
+    require(c > 0.9 and 0.9 < ratio < 1.1, "SSB recovery")
+
+    a2 = np.fft.ifftshift(np.abs(base.to_cpu()) ** 2)
+    a2_hat = np.fft.fft2(a2)
+    blurred = np.real(np.fft.ifft2(np.fft.fft2(p["phi_true"])
+                                   * np.conj(a2_hat) / a2_hat[0, 0].real))
+    t0 = time.perf_counter()
+    icom = pt.icom_reconstruct(stack, sxs, sys_ys, kxs, kxs, probe=base)
+    s_icom = time.perf_counter() - t0
+    c, ratio = pearson(icom["phase"], blurred[::sub, ::sub]), spread_ratio(
+        icom["phase"], blurred[::sub, ::sub])
+    print(f"  iCoM: {s_icom:.2f} s; phase correlation {c:.4f}, radian "
+          f"ratio {ratio:.4f}, curl_rms {icom['curl_rms']:.4f}")
+    require(c > 0.95 and 0.85 < ratio < 1.15 and icom["curl_rms"] < 0.2,
+            "iCoM recovery")
+    del stack
+
+    idx = np.array([i * PR_SCAN + j for i in range(0, PR_SCAN, EPIE_EVERY)
+                    for j in range(0, PR_SCAN, EPIE_EVERY)])
+    epie_data = data4d.reshape(P, n, n)[idx]
+    pt.epie_reconstruct(epie_data[:4], p["positions"][idx][:4], base,
+                        n_iters=1, update_probe=False)       # warm-up
+    rec, ecounts, s = launches_of(lambda: pt.epie_reconstruct(
+        epie_data, p["positions"][idx], base, n_iters=EPIE_SWEEPS,
+        alpha=0.9, update_probe=False))
+    require(ecounts == want_counts(), f"ePIE ran kernels {ecounts}")
+    losses = rec["losses"]
+    phase = band_limit(np.angle(rec["object"]), base.kxs, q_band)
+    c = pearson(phase, truth_full)
+    wall = s / EPIE_SWEEPS
+    device_s = device_seconds(lambda: pt.epie_reconstruct(
+        epie_data, p["positions"][idx], base, n_iters=1, alpha=0.9,
+        update_probe=False))
+    print(f"  ePIE on {len(idx)} patterns, {EPIE_SWEEPS} sweeps: loss "
+          f"{losses[0]:.4e} -> {losses[-1]:.4e}, phase correlation {c:.4f};"
+          f" {wall:.3f} s/sweep, device {device_s:.3f} s/sweep, idle "
+          f"{100 * (1 - device_s / wall):.1f}%; card {card}")
+    require(np.isfinite(losses).all() and losses[-1] < losses[0] / 10
+            and c > 0.8, "ePIE recovery")
+    return counts
+
+
+def device_seconds(fn):
+    """Device time of one run of fn(): the sum of the self device times of
+    its kernels in a torch.profiler trace."""
+    import torch
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+    return 1e-6 * us
+
+
+def band_limit(img, ks, q_max):
+    import numpy as np
+    mask = (np.asarray(ks)[:, None] ** 2 + np.asarray(ks)[None, :] ** 2) \
+        < q_max ** 2
+    return np.real(np.fft.ifft2(np.fft.fft2(img) * mask))
+
+
+def pearson(a, b):
+    import numpy as np
+    a = np.asarray(a, np.float64) - np.mean(a)
+    b = np.asarray(b, np.float64) - np.mean(b)
+    return float((a * b).sum()
+                 / np.sqrt((a ** 2).sum() * (b ** 2).sum() + 1e-30))
+
+
+def spread_ratio(rec, truth):
+    """|rec - mean| / |truth - mean|: the reconstruction's scale in
+    radians against the truth's."""
+    import numpy as np
+    return float(np.linalg.norm(rec - rec.mean())
+                 / np.linalg.norm(truth - truth.mean()))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1471,11 +1925,25 @@ def main():
     thermal = thermal_phase(dev, card)
     print(f"[15] Potential -> Propagate at 16 probes x {N_GRID}^2 (A, B):")
     surface = surface_phase(dev, card)
+    print(f"[16] HRTEM on the {N_ODD}^2 box: {HR_TILTS ** 2} tilts (K4, K5),"
+          " fast_grid (A, B, C), a coherent plane wave (K6):")
+    imaging = [hrtem_phase(dev, card)]
+    print(f"[17] focal series and IWFR at {N_ODD}^2:")
+    imaging.append(ewr_phase(dev, card))
+    print(f"[18] chromatic_stem (K4, K5), precession_diffraction and "
+          f"chromatic_diffraction (K6) on the {N_ODD}^2 box:")
+    imaging.append(coherence_phase(dev, card))
+    print(f"[19] phase retrieval from {PR_SCAN ** 2} patterns at {PR_N}^2 "
+          "(K6): SSB, iCoM, ePIE:")
+    imaging.append(retrieval_phase(dev, card))
     counts.update(k4=odd["k4"] + thermal["k4"], k5=odd["k5"] + thermal["k5"],
                   k6_mixed=k6_mixed + thermal["k6"],
                   k6_pow2=k6_pow2 + k6_sm, k7=k7, k8=k8)
     for k in ("a", "b", "c"):
         counts[k] += streamed[k] + resumed[k] + surface[k]
+    for part in imaging:
+        for k, v in part.items():
+            counts[k] += v
     for k, rec in records.items():
         rec["launches"] = counts[k]
     print(json.dumps({"kernels": [records[k] for k in KERNELS]}))

@@ -18,6 +18,14 @@ the frozen-phonon facades (``engine.thermal``) and the detectors
 (``analysis.detectors``). The reference's direct surface: ``Potential``
 -> ``Propagate``, ``kirkland``, ``loadKirkland``, ``getZfromElementName``.
 
+The imaging toolkit: HRTEM/CTEM (``hrtem_image``, ``image_from_exit_wave``,
+``objective_transfer``, ``focal_series``; ``engine.ctem``), partial
+coherence (``engine.coherence``), precession diffraction
+(``precession_diffraction``), phase retrieval (``ssb_reconstruct``,
+``icom_reconstruct``, ``epie_reconstruct``, ``scan_grid_data``,
+``iwfr_reconstruct``) and the crystal builders (``crystal``,
+``orthogonal_supercell``, ``substitute``, ``vacancies``).
+
 Entry points run on the card unless the caller passes ``device="cpu"``;
 the device is explicit wherever a tensor is made.
 Importing the package switches TF32 off for float32 matrix products
@@ -31,6 +39,8 @@ from .core.dtypes import (DOUBLE, SINGLE, Precision, get_precision,
 from .core.grids import (Grid, grid_from_box, grid_from_box_matrix,
                          grid_from_trajectory, gridFromTrajectory)
 from .data.trajectory import Trajectory
+from .data.crystals import (crystal, orthogonal_supercell, substitute,
+                            vacancies)
 from .io.loader import TrajectoryLoader
 from .io.stream import TrajectoryStream
 from .physics.kirkland import element_to_z, form_factor, z_to_element
@@ -48,7 +58,13 @@ from .engine.inverse import (refine_aberrations, refine_structure,
 from .analysis.wf_data import WFData
 from .analysis.tacaw import TACAWData
 from .analysis.haadf import HAADFData
-from .analysis.ptychography import msp_reconstruct
+from .analysis.ptychography import (epie_reconstruct, icom_reconstruct,
+                                    msp_reconstruct, scan_grid_data,
+                                    ssb_reconstruct)
+from .analysis.ewr import iwfr_reconstruct
+from .engine.ctem import (focal_series, hrtem_image, image_from_exit_wave,
+                          objective_transfer)
+from .engine.ped import precession_diffraction, precession_tilts
 
 
 def getZfromElementName(element: str) -> int:
@@ -95,4 +111,9 @@ __all__ = [
     "build_beams", "compute_smatrix", "smatrix_exit_kspace",
     "smatrix_reduce", "StreamingTACAW", "StreamingHAADF", "kirkland",
     "loadKirkland", "getZfromElementName",
+    "crystal", "orthogonal_supercell", "substitute", "vacancies",
+    "ssb_reconstruct", "icom_reconstruct", "epie_reconstruct",
+    "scan_grid_data", "iwfr_reconstruct", "hrtem_image",
+    "image_from_exit_wave", "objective_transfer", "focal_series",
+    "precession_diffraction", "precession_tilts",
 ]

@@ -16,7 +16,7 @@ analysis methods reduce |Psi(omega, q)|^2 and return NumPy arrays:
 
 ``intensity`` is a tensor for device-resident WFData and a NumPy array for
 host WFData, as in the JAX package. The mesh-sharded branch is not ported
-yet (ROADMAP queue 1, item 11: Multi-GPU).
+yet (ROADMAP queue 1, item 8: Multi-GPU).
 """
 
 from __future__ import annotations

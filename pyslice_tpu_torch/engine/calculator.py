@@ -121,7 +121,7 @@ class MultisliceCalculator:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (multi-GPU runs) is not ported yet (ROADMAP queue 1, "
-                "item 11: Multi-GPU)")
+                "item 8: Multi-GPU)")
         if isinstance(aberrations, dict):
             aberrations = Aberrations(**aberrations)
         self.aberrations = aberrations

@@ -1,7 +1,9 @@
 """Production-scale parity of the port on the card (the counterpart of the
 JAX package's tests/test_tpu.py::test_e2e_production_scale_parity_on_
-hardware): 1024^2 x 16 probes x 14 slices through the kernels, and a
-32-frame time FFT, against the port's complex128 plain path on the card,
+hardware): 1024^2 x 16 probes x 14 slices through the kernels, a 32-frame
+time FFT, an HRTEM image of 25 tilted plane waves at 1023^2 (K4, K5) and
+SSB on a 32 x 32 x 256^2 stack, against the port's complex128 path on the
+card,
 which is independent of the kernels (the CPU tests hold that path to the
 JAX package in x64 within 1e-10). Every test needs a CUDA device and
 skips without one. The machine with the card has no JAX, so run this file
@@ -141,3 +143,82 @@ def test_production_scale_time_fft(dev):
           f"{peak / 2 ** 30:.2f} GiB; {_card()}")
     assert max(res.values()) < 1e-6
     assert res_spec < 1e-6
+
+
+def test_production_scale_hrtem(dev):
+    """hrtem_image on the 1023^2 hBN box (14 slices, Scherzer focus for Cs
+    1.2 mm, 20 mrad aperture, 7 chromatic nodes for Cc 1.2 mm at 0.8 eV,
+    a 0.5 mrad cone as 25 lattice tilts through K4/K5, one frozen-phonon
+    configuration) against the same call in complex128 on the card (the
+    plain loop)."""
+    from pyslice_tpu_torch.core.constants import wavelength
+    from pyslice_tpu_torch.core.dtypes import get_precision
+    traj = _hbn_box(102.25, 1, seed=3)
+    ab = pt.Aberrations(C3=1.2e7)
+    kw = dict(aberrations=ab, defocus=ab.scherzer_defocus(wavelength(100e3)),
+              objective_aperture=20.0, Cc=1.2e7, dE=0.8, n_nodes=7,
+              beam_semiangle=0.5, n_tilts=5, n_configs=1, device=dev)
+    for k in fs.launches:
+        fs.launches[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, xs, _ = pt.hrtem_image(
+        traj, generator=torch.Generator().manual_seed(0), **kw)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    assert img.shape == (1023, 1023) and img.dtype == np.float32
+    assert (fs.launches["k4"], fs.launches["k5"]) == (14, 13)
+    before = get_precision()
+    pt.set_default_precision("double")
+    try:
+        ref, _, _ = pt.hrtem_image(
+            traj, generator=torch.Generator().manual_seed(0), **kw)
+    finally:
+        pt.set_default_precision(before)
+    assert ref.dtype == np.float64
+    res = _residual(torch.from_numpy(img), torch.from_numpy(ref))
+    rel = float(np.abs(img - ref).max() / np.abs(ref).max())
+    print(f"\nproduction-scale HRTEM (1023^2 x 25 tilts x 14 slices, 7 "
+          f"nodes) against complex128: residual {res:.3e}, max|d|/max|ref| "
+          f"{rel:.3e}; {run_s:.2f} s (first run); {_card()}")
+    assert res < 1e-6 and rel < 1e-4
+
+
+def test_production_scale_ssb(dev):
+    """ssb_reconstruct on a 32 x 32 x 256^2 stack (a weak-phase specimen,
+    20 mrad, 0.8 A steps; the intensities from the complex128 plain
+    multislice on the card), float32 data (complex64 on the card) against
+    float64 (complex128)."""
+    n, step = 256, 0.8
+    xs = np.linspace(0, 25.6, n, endpoint=False)
+    rng = np.random.default_rng(3)
+    pos = rng.random((1, 71, 3)) * np.array([25.6, 25.6, 1.9])
+    types = rng.choice([5, 7], 71).astype(np.int32)
+    plan = pt.make_plan(xs, xs, np.array([0.0, 1.0]), pos, types)
+    v = pt.rasterize(pos[0], plan, precision="double", device=dev)
+    v = v * (0.05 / (pt.interaction_parameter(100e3) * v.abs().max()))
+    axis = np.arange(32) * step
+    scan = np.array([(a, b) for a in axis for b in axis])
+    base = pt.Probe(xs, xs, 20.0, 100e3, precision="double", device=dev)
+    probes = pt.shift_probes(base.array, base.kxs, base.kys, scan,
+                             precision="double")
+    ew = pt.multislice(probes, v, base.kxs, base.kys, eV=100e3, dz=1.0,
+                       precision="double")
+    inten = (torch.fft.fftshift(torch.fft.fft2(ew), dim=(-2, -1)).abs()
+             ** 2).reshape(32, 32, n, n)
+    kxs = np.fft.fftshift(base.kxs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pt.ssb_reconstruct(inten.float(), axis, axis, kxs, kxs, probe=base)
+    run_s = time.perf_counter() - t0
+    ref = pt.ssb_reconstruct(inten, axis, axis, kxs, kxs, probe=base)
+    np.testing.assert_array_equal(got["trotter_pixels"],
+                                  ref["trotter_pixels"])
+    res = _residual(torch.from_numpy(got["phase"]),
+                    torch.from_numpy(ref["phase"]))
+    rel = float(np.abs(got["phase"] - ref["phase"]).max()
+                / np.abs(ref["phase"]).max())
+    print(f"\nproduction-scale SSB (32 x 32 x 256^2) complex64 against "
+          f"complex128 on the card: residual {res:.3e}, max|d|/max|ref| "
+          f"{rel:.3e}; {run_s:.2f} s; {_card()}")
+    assert res < 1e-6 and rel < 1e-4

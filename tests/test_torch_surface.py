@@ -197,9 +197,23 @@ def test_device_output_memory_warning(caplog, monkeypatch):
     assert "StreamingTACAW/StreamingHAADF" in caplog.text
 
 
+IMAGING_NAMES = ["crystal", "orthogonal_supercell", "substitute", "vacancies",
+                 "ssb_reconstruct", "icom_reconstruct", "epie_reconstruct",
+                 "scan_grid_data", "iwfr_reconstruct", "hrtem_image",
+                 "image_from_exit_wave", "objective_transfer", "focal_series",
+                 "precession_diffraction", "precession_tilts"]
+IMAGING_MODULES = ["pyslice_tpu_torch.data.crystals",
+                   "pyslice_tpu_torch.engine.coherence",
+                   "pyslice_tpu_torch.engine.ctem",
+                   "pyslice_tpu_torch.engine.ped",
+                   "pyslice_tpu_torch.analysis.ewr",
+                   "pyslice_tpu_torch.analysis.ptychography"]
+
+
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, imports with jax and
-    pyslice_tpu blocked."""
+    """Every module of the port (the imaging toolkit's by name), and
+    chip_smoke.py, imports with jax and pyslice_tpu blocked, and the
+    package root exports the imaging toolkit's names."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -208,13 +222,19 @@ def test_port_imports_no_jax():
         import pyslice_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             pyslice_tpu_torch.__path__, "pyslice_tpu_torch.")]
+        missing = set({IMAGING_MODULES!r}) - set(names)
+        assert not missing, missing
         for name in names:
             importlib.import_module(name)
+        for name in {IMAGING_NAMES!r}:
+            assert name in pyslice_tpu_torch.__all__, name
+            getattr(pyslice_tpu_torch, name)
         import chip_smoke
         assert "jax" not in [k for k, v in sys.modules.items() if v]
+        assert "pyslice_tpu" not in [k for k, v in sys.modules.items() if v]
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 30
+    assert int(out.stdout.split()[-1]) >= 44
