@@ -95,7 +95,35 @@ Phases, each printing one line (or a few) and failing hard:
    on the 32 x 32 subset for 40 sweeps with the probe known (loss falls
    10x, correlation > 0.8); s a sweep and the sweep's idle share
    (torch.profiler's device time against the wall);
-20. a JSON line per kernel, the nvidia-smi line, and the final JSON line.
+20. the command line (``python -m pyslice_tpu_torch``) at the quick
+   start's width: phase 6's dump written anew, ``info`` in process, the
+   native dump parser against the Python one (bit-equal arrays, both
+   times, ``last_parser == "native"``), ``run --mode tacaw`` in process
+   (a plane wave at 1023^2: 100 K6 launches and no other kernel;
+   spectrum and diffraction within 1e-6 of MultisliceCalculator +
+   TACAWData), ``run --mode haadf`` on a 4 x 4 probe grid at 30 mrad for
+   10 frames at 1023^2 (K4 14, K5 13 a frame) and with --fast-grid at
+   1024^2 (A 14, B 13, C 1 a frame), that config replayed by
+   ``python3 -m pyslice_tpu_torch run --config`` in a subprocess (its
+   image against the in-process one), ``devices``;
+21. measured-data calibration at a real 4D-STEM size: the 25.55 A hBN box
+   (256^2 x 14 slices) scanned at 128 x 128 positions (25 mrad, 100 kV,
+   the 2/3 band limit, so that the total-count image the affine fit reads
+   shows the lattice) through MultisliceCalculator in chunks of 2,048
+   probes (8 K6 launches), scan_grid_data's 16,384 x 256^2 float32 cube
+   (4.29 GB) corrupted as tests/test_calibration.py corrupts it (PSF sigma
+   1.2 px, its sub-pixel descan, a hot and a dead pixel) behind a seeded
+   dark frame and gain map; calibrate_datacube in float32 and float64
+   held to that test's bars (the two bad pixels, rotation under 1 degree,
+   no transpose, skewness < -0.1 on the chosen branch, descan slopes
+   within 0.005 px, iCoM within 2% of the clean cube's), float32 against
+   float64 (masks, transpose, CoM within 1e-4), again with the integer-
+   roll descan, the ellipse and the affine resampling; per call (profiled
+   first, then timed warm) its seconds, device time, idle share, peak
+   memory over the cube's bytes, and its dispatched operations, the same
+   at 64 x 64 positions; with h5py, the 64 x 64 cube through save_4dstem
+   and ``calibrate``, whose report.json equals the in-process result;
+22. a JSON line per kernel, the nvidia-smi line, and the final JSON line.
 
 Each kernel's record carries its bound: the least time an H100 could take
 for the launch timed, the larger of the bytes it must move (each input
@@ -1823,19 +1851,27 @@ def retrieval_phase(dev, card):
 def device_seconds(fn):
     """Device time of one run of fn(): the sum of the self device times of
     its kernels in a torch.profiler trace."""
+    return device_profile(fn)[0]
+
+
+def device_profile(fn):
+    """One run of fn() under torch.profiler: (the sum of the self device
+    times of its device events in seconds, the number of those events —
+    kernels, copies and sets —, fn's result)."""
     import torch
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
     with prof:
-        fn()
+        out = fn()
         torch.cuda.synchronize()
-    us = 0.0
+    us, n = 0.0, 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             t = getattr(e, "self_device_time_total", None)
             us += e.self_cuda_time_total if t is None else t
-    return 1e-6 * us
+            n += e.count
+    return 1e-6 * us, n, out
 
 
 def band_limit(img, ks, q_max):
@@ -1859,6 +1895,411 @@ def spread_ratio(rec, truth):
     import numpy as np
     return float(np.linalg.norm(rec - rec.mean())
                  / np.linalg.norm(truth - truth.mean()))
+
+
+CLI_REL = 1e-6      # CLI outputs against the same run through the API
+CAL_LX, CAL_SCAN, CAL_CHUNK = 25.55, 128, 2048   # phase 21: 256^2 grid
+CAL_MRAD, CAL_PSF = 25.0, 1.2                    # mrad; PSF sigma (px)
+CAL_INJECT = ((0.1, -0.06, 0.04), (-0.08, 0.05, 0.06))   # descan (px)
+CAL_F32_REL = 1e-4  # float32 calibration's CoM against float64's
+# The 2/3 antialiasing band limit: the electrons it removes are lost as past
+# a camera's edge, so the total-count image the affine fit reads shows the
+# lattice (with every electron kept, that image is flat and the fit reads
+# rounding noise).
+CAL_BAND = 2 / 3
+
+
+def load_npys(out, names):
+    import numpy as np
+    return {name: np.load(f"{out}/{name}.npy") for name in names}
+
+
+def same_outputs(what, got, want, bar):
+    """max|d|/max|ref| of every array of ``got`` against ``want``, each at
+    most ``bar``; prints whether they are bit-identical."""
+    import numpy as np
+    for name, w in want.items():
+        g = got[name]
+        require(g.shape == w.shape and np.isfinite(g).all(),
+                f"{what}: {name} {g.shape}")
+        rel = float(np.abs(g - w).max() / np.abs(w).max())
+        print(f"  {what}: {name} max|d|/max|ref| {rel:.3e}, bit-identical "
+              f"{bool(np.array_equal(g, w))}")
+        require(rel <= bar, f"{what}: {name} disagrees")
+
+
+def cli_phase(dev, card, tmp, n_frames=QUICK_FRAMES, lx=102.25, grid=N_ODD,
+              haadf_frames=N_FRAMES):
+    """Phase 20: the command line on the card at the quick start's width.
+    Phase 6's dump (written anew), ``info``, the native parser against the
+    Python one, ``run --mode tacaw`` in process (one K6 launch a frame and
+    nothing else; its outputs against MultisliceCalculator + TACAWData),
+    ``run --mode haadf`` at 1023^2 (K4/K5) and with --fast-grid at 1024^2
+    (A/B/C), the HAADF config replayed by ``python3 -m pyslice_tpu_torch``
+    in a subprocess, and ``devices``. Returns the launch counts."""
+    import os
+    import numpy as np
+    import pyslice_tpu_torch as pt
+    from pyslice_tpu_torch.__main__ import main
+    from pyslice_tpu_torch.io import lammps as lammps_io
+    from pyslice_tpu_torch.io import native_loader
+
+    dump = f"{tmp}/hbn_cli.lammpstrj"
+    src = hbn_box(lx, n_frames)
+    lammps_io.write_lammps_dump(dump, np.where(src.atom_types == 5, 1, 2),
+                                src.positions, src.velocities,
+                                src.box_matrix)
+    on = ["--device", dev.type]
+    require(main(["info", dump, "--no-cache", *on]) == 0, "info")
+    native_loader.get_lib()                     # build outside the timing
+    t0 = time.perf_counter()
+    native = native_loader.parse_dump(dump)
+    t_native = time.perf_counter() - t0
+    require(native_loader.last_parser == "native", "the native parser did "
+            f"not run ({native_loader.last_parser})")
+    t0 = time.perf_counter()
+    python = lammps_io.parse_lammps_dump(dump)
+    t_python = time.perf_counter() - t0
+    require(all(a.dtype == b.dtype and np.array_equal(a, b)
+                for a, b in zip(native, python)),
+            "native and Python parsers differ")
+    print(f"  parse {src.n_atoms} atoms x {n_frames} frames: native "
+          f"{t_native:.3f} s, Python {t_python:.3f} s "
+          f"({t_python / t_native:.1f}x), arrays bit-equal")
+
+    common = ["--trajectory", dump, "--timestep", "0.005", "--atom-mapping",
+              "1=B,2=N", "--voltage-eV", "100000", "--sampling", "0.1",
+              "--slice-thickness", "0.5", "--no-cache", "--cache-root",
+              f"{tmp}/psi", *on]
+    total = {}
+
+    def counted_cli(what, argv, want):
+        rc, counts, s = launches_of(lambda: main(argv))
+        print(f"  {what}: exit {rc}, {s:.1f} s, launches {counts}, "
+              f"expected {want}")
+        require(rc == 0 and counts == want, f"{what}: exit {rc}, launches")
+        add_counts(total, counts)
+
+    out_t = f"{tmp}/cli_tacaw"
+    counted_cli(f"run --mode tacaw ({n_frames} frames, {grid}^2)",
+                ["run", *common, "--mode", "tacaw", "--output-dir", out_t],
+                want_counts(k6=n_frames))
+    traj = pt.TrajectoryLoader(dump, timestep=0.005,
+                               atom_mapping={1: "B", 2: "N"},
+                               use_cache=False).load()
+    calc = pt.MultisliceCalculator(device=dev)
+    calc.setup(traj, aperture=0.0, voltage_eV=100e3, sampling=0.1,
+               slice_thickness=0.5, device_output=True, use_cache=False)
+    require((calc.nx, calc.ny) == (grid, grid), f"grid {calc.nx}")
+    tac = pt.TACAWData(calc.run(progress=False))
+    same_outputs("CLI tacaw vs MultisliceCalculator + TACAWData",
+                 load_npys(out_t, ("frequencies", "spectrum",
+                                   "diffraction")),
+                 {"frequencies": tac.frequencies,
+                  "spectrum": tac.spectrum(None),
+                  "diffraction": tac.diffraction(None)}, CLI_REL)
+    del tac, calc
+
+    haadf = ["--mode", "haadf", "--aperture", "30", "--probe-grid",
+             "10,90,10,90,4,4", "--max-frames", str(haadf_frames)]
+    out_h = f"{tmp}/cli_haadf"
+    for fast in (False, True):
+        g = pt.grid_from_trajectory(traj, sampling=0.1, slice_thickness=0.5,
+                                    fast_grid=fast)
+        f, nz = haadf_frames, g.nz
+        want = (want_counts(a=f * nz, b=f * (nz - 1), c=f) if fast
+                else want_counts(k4=f * nz, k5=f * (nz - 1)))
+        out = out_h + ("_fast" if fast else "")
+        counted_cli(f"run --mode haadf, 16 probes x {f} frames at "
+                    f"{g.nx}^2" + (" (--fast-grid)" if fast else ""),
+                    ["run", *common, *haadf, "--output-dir", out]
+                    + (["--fast-grid"] if fast else []), want)
+        img = np.load(f"{out}/haadf_image.npy")
+        print(f"    haadf_image {img.shape}, range {img.min():.4e}.."
+              f"{img.max():.4e}")
+        require(img.shape == (4, 4) and np.isfinite(img).all()
+                and img.min() > 0, "HAADF image")
+
+    out_s = f"{tmp}/cli_haadf_subprocess"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pyslice_tpu_torch", "run", "--config",
+         f"{out_h}/config.json", "--output-dir", out_s, *on],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    print(f"  python3 -m pyslice_tpu_torch run --config (haadf): exit "
+          f"{proc.returncode}, {time.perf_counter() - t0:.1f} s")
+    require(proc.returncode == 0, f"the subprocess run failed:\n"
+            f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    same_outputs("subprocess vs in-process",
+                 load_npys(out_s, ("haadf_image",)),
+                 load_npys(out_h, ("haadf_image",)), CLI_REL)
+    require(main(["devices"]) == 0, "devices")
+    return total
+
+
+class OpCount:
+    """Counts the operations dispatched on tensors of one device, by name:
+    the aten operations PyTorch runs there (views excluded: they launch
+    nothing), whatever number of kernels each one launches."""
+
+    def __init__(self, device):
+        import collections
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+        kind = torch.device(device).type
+        counter = self
+
+        def on_device(x):
+            if isinstance(x, torch.Tensor):
+                return x.device.type == kind
+            return isinstance(x, torch.device) and x.type == kind
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                if not func.is_view and any(
+                        on_device(x) for x in tree_leaves((args, kwargs))):
+                    counter.ops[str(func)] += 1
+                return func(*args, **kwargs)
+
+        self.mode = Mode()
+        self.ops = collections.Counter()
+
+    def __call__(self, fn):
+        """(fn(), its operations by name)."""
+        self.ops.clear()
+        with self.mode:
+            out = fn()
+        return out, dict(self.ops)
+
+
+def calibration_phase(dev, card, tmp, lx=CAL_LX, scan=CAL_SCAN,
+                      chunk=CAL_CHUNK):
+    """Phase 21: measured-data calibration at a real 4D-STEM size. The hBN
+    box of phase 19's width (25.55 A, 256^2, 14 slices) scanned at scan x
+    scan positions (25 mrad, 100 kV, CAL_BAND) through MultisliceCalculator
+    in probe chunks (K6), scan_grid_data's cube corrupted as
+    tests/test_calibration.py corrupts it (PSF, sub-pixel descan, a hot and
+    a dead pixel) behind a seeded dark frame and gain map, then
+    calibrate_datacube on the card in float32 and float64, held to that
+    test's bars, and again with the ellipse and affine resampling; per
+    call its seconds, device time, idle share, peak memory and operation
+    counts (the same at half the scan in each axis); the EMD file and
+    ``calibrate`` when h5py imports. Returns the launch counts."""
+    import numpy as np
+    import torch
+    import pyslice_tpu_torch as pt
+    from pyslice_tpu_torch.__main__ import main, report_json
+    from pyslice_tpu_torch.analysis import calibration as cal
+
+    traj = hbn_box(lx, 1)
+    pg = pt.probe_grid([0.0, lx], [0.0, lx], scan, scan)
+    calc = pt.MultisliceCalculator(device=dev)
+    calc.setup(traj, aperture=CAL_MRAD, voltage_eV=100e3, sampling=0.1,
+               slice_thickness=0.5, probe_positions=pg, batch_size=chunk,
+               device_output=True, use_cache=False,
+               bandwidth_limit=CAL_BAND)
+    n_chunks = -(-calc.n_probes // chunk)
+    print(f"  {traj.n_atoms} atoms, grid {calc.nx}x{calc.ny}x{calc.nz}, "
+          f"{calc.n_probes} probes in {n_chunks} chunks of {chunk}")
+    wf, counts, run_s = counted_run(calc, want_counts(k6=n_chunks))
+    total = add_counts({}, counts)
+    print(f"  exit waves: {run_s:.2f} s")
+    xs, ys, raw = pt.scan_grid_data(wf)
+    kxs, kys, probe = wf.kxs, wf.kys, wf.probe
+    del wf, calc
+    nk = raw.shape[-1]
+    cube_bytes = raw.nbytes
+    raw = torch.as_tensor(raw, device=dev)
+    print(f"  scan_grid_data: {tuple(raw.shape)} {raw.dtype}, "
+          f"{cube_bytes / 1e9:.2f} GB")
+
+    fx = torch.fft.fftfreq(nk, dtype=torch.float64, device=dev)
+    psf = torch.exp(-2 * math.pi ** 2 * CAL_PSF ** 2
+                    * (fx[:, None] ** 2 + fx[None, :] ** 2)).float()
+    clean = torch.fft.ifft2(torch.fft.fft2(raw) * psf).real.clamp(min=0.0)
+    del raw
+    inject = np.array(CAL_INJECT)
+    cube = cal.apply_descan(clean, inject, xs, ys, 1.0, subpixel=True)
+    gen = torch.Generator().manual_seed(0)
+    dark = (0.01 * float(cube.mean())
+            * torch.rand((nk, nk), generator=gen)).to(dev)
+    gain = (0.9 + 0.2 * torch.rand((nk, nk), generator=gen)).to(dev)
+    cube = cube * gain + dark
+    hot, dead = (nk // 3, nk // 4), (2 * nk // 3, nk // 2)
+    cube[:, :, hot[0], hot[1]] = cube.max() * 50
+    cube[:, :, dead[0], dead[1]] = 0.0
+    dk, dky = float(kxs[1] - kxs[0]), float(kys[1] - kys[0])
+    a_, by = 2.504, math.sqrt(3.0) * 2.504
+    g_hbn = [[1 / a_, -1 / by], [0.0, 2 / by]]   # of (a, 0), (a/2, by/2)
+    # the first call shifts the patterns by Fourier ramps (the JAX test's
+    # call); the second by the default integer roll, then resamples them
+    # with the ellipse and the affine fit: three gathers over the cube
+    kw1 = dict(kxs=kxs, kys=kys, subpixel_descan=True)
+    kw2 = dict(kxs=kxs, kys=kys, apply_ellipse=True, g_expected=g_hbn,
+               apply_affine=True)
+
+    def run(c, x, y, kw):
+        return cal.calibrate_datacube(c, x, y, dark=dark, gain=gain, **kw)
+
+    ops = OpCount(dev)
+
+    def measured(label, c, kw):
+        """One profiled, counted call (which also warms up cuFFT's plans
+        and the allocator), one timed call, and the operation count at half
+        the scan in each axis."""
+        torch.cuda.empty_cache()
+        dev_s, n_events, (_, by_op) = device_profile(
+            lambda: ops(lambda: run(c, xs, ys, kw)))
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = run(c, xs, ys, kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        half = c[::2, ::2].contiguous()
+        dev_h, n_events_h, (res_h, by_op_h) = device_profile(
+            lambda: ops(lambda: run(half, xs[::2], ys[::2], kw)))
+        del half
+        n_ops, n_ops_h = sum(by_op.values()), sum(by_op_h.values())
+        if n_ops != n_ops_h:
+            print(f"  operations that differ: " + ", ".join(
+                f"{k} {by_op.get(k, 0)}/{by_op_h.get(k, 0)}"
+                for k in sorted(set(by_op) | set(by_op_h))
+                if by_op.get(k) != by_op_h.get(k)))
+            print(f"  reports: {res['report']} / {res_h['report']}")
+        del res_h
+        print(f"  {label}: {wall:.3f} s a call, device {1e3 * dev_s:.1f} ms,"
+              f" idle {100 * (1 - dev_s / wall):.1f}% of the wall; peak "
+              f"{peak / 1e9:.2f} GB over the {c.nbytes / 1e9:.2f} GB cube "
+              f"({peak / c.nbytes:.2f}x); device operations {n_ops} at "
+              f"{scan}^2 and {n_ops_h} at {scan // 2}^2 positions; device "
+              f"events (kernels, copies, sets) {n_events} and {n_events_h}")
+        require(n_ops == n_ops_h, f"{label}: the device operations depend "
+                "on the number of patterns")
+        require(res["data"].dtype == c.dtype
+                and bool(torch.isfinite(res["data"]).all())
+                and bool(torch.isfinite(res["com"]).all()),
+                f"{label}: calibrated cube {res['data'].dtype}, finite")
+        res["data"] = None                  # only the fits are held
+        return res
+
+    def bars(label, res):
+        """tests/test_calibration.py's bars. Its ``skewness < -0.1`` reads
+        the statistic of the [0, pi) candidate before the 180-degree flip:
+        a true rotation of 0 lands there as ~0 or as ~pi by its last bits,
+        and the flip negates the statistic. The chosen branch's skewness,
+        -|skewness|, is what the bar holds (the branch is determined by
+        the data); the rotation bar holds that the branch is right."""
+        bad = res["bad_pixels"].cpu().numpy()
+        rot = math.degrees(res["rotation"]) % 360.0
+        skew = res["rotation_diag"]["skewness"]
+        slopes = (res["descan"]["coeffs"][:, 1:].cpu().numpy()
+                  / np.array([[dk], [dky]]))
+        ref_cube = cal.fix_pixels(clean, res["bad_pixels"])
+        ref_com = cal.fit_descan(cal.com_field(ref_cube, kxs, kys), xs,
+                                 ys)["corrected"]
+        del ref_cube
+        ref = pt.icom_reconstruct(None, xs, ys, kxs, kys, probe=probe,
+                                  com=ref_com)
+        got = pt.icom_reconstruct(None, xs, ys, kxs, kys, probe=probe,
+                                  com=res["com"])
+        err = float(np.abs(got["phase"] - ref["phase"]).max()
+                    / np.abs(ref["phase"]).max())
+        print(f"  {label}: bad pixels {int(bad.sum())} (hot {bad[hot]}, "
+              f"dead {bad[dead]}), rotation {min(rot, 360 - rot):.4f} deg, "
+              f"transpose {res['transpose']}, skewness {skew:.4f} (the "
+              f"chosen branch's {-abs(skew):.4f}), descan slopes "
+              f"{np.round(slopes, 5).tolist()} px (injected "
+              f"{(-inject[:, 1:]).tolist()}), iCoM against the clean cube "
+              f"{err:.4f}, curl {got['curl_rms']:.4f} (clean "
+              f"{ref['curl_rms']:.4f})")
+        for line in res["report"]:
+            print(f"    - {line}")
+        require(bad.sum() == 2 and bad[hot] and bad[dead], "bad pixels")
+        require(min(rot, 360 - rot) < 1.0 and not res["transpose"]
+                and -abs(skew) < -0.1, "rotation")
+        require(np.abs(slopes + inject[:, 1:]).max() <= 0.005, "descan")
+        require(err < 0.02 and got["curl_rms"] < ref["curl_rms"] * 1.2
+                + 0.02, "iCoM from the calibrated CoM")
+
+    def f32_vs_f64(label, r32, r64):
+        d, rel, _ = errors(r32["com"], r64["com"])
+        same_mask = bool(torch.equal(r32["bad_pixels"], r64["bad_pixels"]))
+        print(f"  {label}, float32 vs float64: bad-pixel masks equal "
+              f"{same_mask}, transpose {r32['transpose']} / "
+              f"{r64['transpose']}, CoM max|d|/max|ref| {rel:.3e}")
+        require(same_mask and r32["transpose"] == r64["transpose"]
+                and rel <= CAL_F32_REL, f"{label}: float32 vs float64")
+
+    r32 = measured("calibrate_datacube, float32", cube, kw1)
+    bars("float32", r32)
+    e32 = measured("with the ellipse and affine resampling, float32", cube,
+                   kw2)
+    cube64 = cube.double()
+    del cube
+    r64 = measured("calibrate_datacube, float64", cube64, kw1)
+    bars("float64", r64)
+    f32_vs_f64("calibrate_datacube", r32, r64)
+    del r32, r64
+    e64 = measured("with the ellipse and affine resampling, float64",
+                   cube64, kw2)
+    for label, r in (("float32", e32), ("float64", e64)):
+        print(f"  ellipse and affine, {label}: ellipticity "
+              f"{r['ellipse']['ellipticity']:.5f}, angle "
+              f"{math.degrees(r['ellipse']['angle']):.2f} deg, A "
+              f"{np.round(r['affine']['A'].cpu().numpy(), 5).tolist()}, "
+              f"peak SNR {np.round(r['affine']['peak_snr'], 2).tolist()}")
+    f32_vs_f64("with the ellipse and affine resampling", e32, e64)
+    del e32, e64, clean
+
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        print("  h5py does not import here: the EMD file and `calibrate` "
+              "were not run (they are CPU-tested)")
+        return total
+    half = cube64[::2, ::2].float().contiguous()
+    del cube64
+    step = float(xs[2] - xs[0])
+    src = f"{tmp}/raw.emd"
+    t0 = time.perf_counter()
+    pt.save_4dstem(src, half)
+    np.save(f"{tmp}/dark.npy", dark.cpu().numpy())
+    np.save(f"{tmp}/gain.npy", gain.cpu().numpy())
+    print(f"  save_4dstem {tuple(half.shape)}: "
+          f"{time.perf_counter() - t0:.2f} s")
+    out = f"{tmp}/calibrated"
+    t0 = time.perf_counter()
+    rc = main(["calibrate", src, "--scan-step", repr(step), "--dark",
+               f"{tmp}/dark.npy", "--gain", f"{tmp}/gain.npy",
+               "--k-per-pixel", repr(dk), "--output-dir", out,
+               "--device", dev.type])
+    print(f"  calibrate (CLI, float64): exit {rc}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    require(rc == 0, "calibrate")
+    axis = np.arange(half.shape[0]) * step
+    want = report_json(cal.calibrate_datacube(
+        half.double(), axis, axis, dark=dark.cpu().numpy(),
+        gain=gain.cpu().numpy(), k_per_pixel=dk))
+    got = json.loads(open(f"{out}/report.json").read())
+    require(got.keys() == want.keys(), "report.json keys")
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, float):
+            ok = math.isclose(g, w, rel_tol=1e-9, abs_tol=1e-15)
+        elif isinstance(w, list) and w and isinstance(w[0], list):
+            ok = np.allclose(g, w, rtol=1e-9, atol=1e-15)
+        else:
+            ok = g == w
+        require(ok, f"report.json {k}: {g} != {w}")
+    print(f"  report.json equals the in-process result "
+          f"({got['bad_pixels']} bad pixels, rotation "
+          f"{math.degrees(got['rotation_rad']):.3f} deg)")
+    return total
 
 
 def main():
@@ -1936,6 +2377,15 @@ def main():
     print(f"[19] phase retrieval from {PR_SCAN ** 2} patterns at {PR_N}^2 "
           "(K6): SSB, iCoM, ePIE:")
     imaging.append(retrieval_phase(dev, card))
+    with tempfile.TemporaryDirectory() as tmp:
+        print(f"[20] the command line at {N_ODD}^2: info, the native parser, "
+              "run --mode tacaw (K6), run --mode haadf (K4, K5; --fast-grid "
+              "A, B, C), python3 -m pyslice_tpu_torch, devices:")
+        imaging.append(cli_phase(dev, card, tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        print(f"[21] measured-data calibration: {CAL_SCAN}^2 patterns at "
+              f"256^2 (K6), float32 and float64:")
+        imaging.append(calibration_phase(dev, card, tmp))
     counts.update(k4=odd["k4"] + thermal["k4"], k5=odd["k5"] + thermal["k5"],
                   k6_mixed=k6_mixed + thermal["k6"],
                   k6_pow2=k6_pow2 + k6_sm, k7=k7, k8=k8)
@@ -1943,7 +2393,7 @@ def main():
         counts[k] += streamed[k] + resumed[k] + surface[k]
     for part in imaging:
         for k, v in part.items():
-            counts[k] += v
+            counts[k] = counts.get(k, 0) + v
     for k, rec in records.items():
         rec["launches"] = counts[k]
     print(json.dumps({"kernels": [records[k] for k in KERNELS]}))

@@ -26,6 +26,13 @@ coherence (``engine.coherence``), precession diffraction
 ``iwfr_reconstruct``) and the crystal builders (``crystal``,
 ``orthogonal_supercell``, ``substitute``, ``vacancies``).
 
+Measured data and the command line: ``load_4dstem`` / ``save_4dstem`` /
+``center_datacube`` (``io.data4d``, HDF5/EMD datacubes read row by row onto
+the card), the calibration chain ``calibrate_datacube`` with ``com_field``,
+``solve_rotation`` and ``estimate_dose`` (``analysis.calibration``), and
+``python -m pyslice_tpu_torch run|info|calibrate|devices`` over
+``engine.config.SimulationConfig``.
+
 Entry points run on the card unless the caller passes ``device="cpu"``;
 the device is explicit wherever a tensor is made.
 Importing the package switches TF32 off for float32 matrix products
@@ -65,6 +72,10 @@ from .analysis.ewr import iwfr_reconstruct
 from .engine.ctem import (focal_series, hrtem_image, image_from_exit_wave,
                           objective_transfer)
 from .engine.ped import precession_diffraction, precession_tilts
+from .io.data4d import (center_datacube, k_sampling_from_disk, load_4dstem,
+                        save_4dstem, scan_positions)
+from .analysis.calibration import (calibrate_datacube, com_field,
+                                   estimate_dose, solve_rotation)
 
 
 def getZfromElementName(element: str) -> int:
@@ -116,4 +127,7 @@ __all__ = [
     "scan_grid_data", "iwfr_reconstruct", "hrtem_image",
     "image_from_exit_wave", "objective_transfer", "focal_series",
     "precession_diffraction", "precession_tilts",
+    "load_4dstem", "center_datacube",
+    "k_sampling_from_disk", "scan_positions", "save_4dstem",
+    "calibrate_datacube", "com_field", "solve_rotation", "estimate_dose",
 ]

@@ -448,8 +448,9 @@ def icom_reconstruct(data4d, scan_xs, scan_ys, kxs, kys, probe=None,
         kxs/kys: detector axes, 1/Angstrom, fftshifted monotonic.
         probe / probe_center: as ``ssb_reconstruct``.
         com: optional calibrated (2, n_sx, n_sy) deflection field in
-            1/Angstrom; overrides the moments of ``data4d`` (which may
-            then be None).
+            1/Angstrom (an array, or a tensor on any device such as
+            ``calibrate_datacube``'s ``com``); overrides the moments of
+            ``data4d`` (which may then be None).
 
     Returns dict with ``phase`` (n_sx, n_sy, radians, the probe-blurred
     phase), ``com`` (2, n_sx, n_sy, 1/Angstrom) and ``curl_rms`` (RMS of
@@ -463,6 +464,8 @@ def icom_reconstruct(data4d, scan_xs, scan_ys, kxs, kys, probe=None,
     dx = _uniform_step(scan_xs, "scan_xs")
     dy = _uniform_step(scan_ys, "scan_ys")
     if com is not None:
+        if isinstance(com, torch.Tensor):      # calibrate_datacube's field
+            com = com.detach().cpu().numpy()
         com = np.asarray(com, np.float64)
         comx, comy = com[0], com[1]
         n_sx, n_sy = comx.shape

@@ -13,16 +13,14 @@ package's), with the original PySlice loader's API:
   ``atom_mapping`` is applied after every cache load, so a run with a
   different mapping never returns the previous mapping's atomic numbers.
 
-Ingest: LAMMPS text dumps, gzipped dumps (.gz, sniffed by magic bytes),
-binary dumps (.bin, sniffed by NUL words), element-name atom columns,
-(extended) XYZ, CIF, and multi-file dump patterns —
+Ingest: LAMMPS text dumps (through the native C++ parser of
+``io.native_loader`` where the layout allows, else the Python parser; the
+arrays are the same), gzipped dumps (.gz, sniffed by magic bytes), binary
+dumps (.bin, sniffed by NUL words), element-name atom columns, (extended)
+XYZ, CIF, VASP POSCAR/CONTCAR/XDATCAR (``io.vasp``), AMBER NetCDF
+(``io.amber``), HOOMD GSD (``io.gsd``), and multi-file dump patterns —
 ``TrajectoryLoader("dump.*.lammpstrj")`` (glob) or an explicit list of
 files, concatenated in natural (numeric-aware) order.
-
-Not ported yet (ROADMAP queue 1, item 15): the VASP, AMBER and GSD
-readers, whose branches raise ``NotImplementedError``, and the JAX
-package's native C dump parser (``io/native_loader.py``): plain-text
-dumps go to the Python parser here, which gives the same arrays.
 """
 
 from __future__ import annotations
@@ -51,7 +49,8 @@ def _natural_key(p: Path):
 
 def parse_any(path: Path):
     """(types, positions, velocities, box) for one file; dispatches by
-    suffix with transparent .gz handling."""
+    suffix with transparent .gz handling. Shared by the eager loader and
+    the streaming reader (io.stream)."""
     path = Path(path)
     suffixes = [s.lower() for s in path.suffixes]
     gz = suffixes and suffixes[-1] == ".gz"
@@ -63,22 +62,28 @@ def parse_any(path: Path):
     if kind == ".xyz":
         return xyz_io.parse_xyz(path)
     stem_up = path.name.upper()
-    for fmt, hit in (
-            ("VASP", kind in (".poscar", ".vasp") or any(
-                stem_up.startswith(n)
-                for n in ("POSCAR", "CONTCAR", "XDATCAR"))),
-            ("AMBER NetCDF", kind in (".nc", ".ncdf", ".netcdf")),
-            ("GSD", kind == ".gsd")):
-        if hit:
-            raise NotImplementedError(
-                f"{path.name}: the {fmt} reader is not ported to "
-                "pyslice_tpu_torch yet (ROADMAP queue 1, item 15); load it "
-                "with pyslice_tpu.io and pass the arrays to Trajectory")
-    # LAMMPS dump (.lammpstrj, .dump, .bin ...): the Python parser sniffs
-    # gzip magic bytes and binary NUL words (LAMMPS writes binary for
-    # filenames ending .bin).
+    if kind in (".poscar", ".vasp") or any(
+            stem_up.startswith(n) for n in ("POSCAR", "CONTCAR", "XDATCAR")):
+        from . import vasp as vasp_io
+        return vasp_io.parse_poscar(path)
+    if kind in (".nc", ".ncdf", ".netcdf"):
+        from . import amber as amber_io
+        return amber_io.parse_amber_netcdf(path)
+    if kind == ".gsd":
+        from . import gsd as gsd_io
+        return gsd_io.parse_gsd(path)
+    # LAMMPS dump (.lammpstrj, .dump, .bin ...). The native parser reads
+    # raw text only: gzipped and binary dumps (LAMMPS writes binary for
+    # filenames ending .bin) go straight to the Python parser, which sniffs
+    # gzip magic bytes and binary NUL words.
     if kind in (".bin", ".lammpsbin"):
         return lammps_io.parse_lammps_dump_binary(path)
+    if not gz:
+        with open(path, "rb") as fh:
+            head = fh.read(256)
+        if b"\x00" not in head:
+            from .native_loader import parse_dump
+            return parse_dump(path)
     return lammps_io.parse_lammps_dump(path)
 
 

@@ -20,8 +20,10 @@ Unwrapping matches the eager loader (``io/loader.py``,
 
 Where streaming cannot reproduce the loader, it raises: a box that changes
 between frames (NPT), and a single file mixing flagged and flagless
-frames. Text dumps stream through the Python frame iterator; the JAX
-package's native C parser is not ported (ROADMAP queue 1).
+frames. Plain-text dumps of the common layout stream through the native
+incremental parser (``io.native_loader.iter_frames_native``); gzipped or
+other layouts through the Python frame iterator, which gives the same
+arrays. ``native_loader.last_parser`` names the parser of the latest file.
 
 Typical wiring with the streaming engines::
 
@@ -44,6 +46,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from . import lammps as lammps_io
+from . import native_loader
 from .loader import TrajectoryLoader, parse_any
 
 
@@ -258,13 +261,18 @@ class TrajectoryStream:
         prev_last = None
         for path in self.filepaths:
             if _is_streamable_lammps(path):
+                frames = None if _is_gz(path) else \
+                    native_loader.iter_frames_native(path)
+                native_loader.last_parser = ("python" if frames is None
+                                             else "native")
+                if frames is None:
+                    frames = iter_lammps_text_frames(path)
                 # flag-unwrapped files get one constant per-atom seam shift
                 # (the loader stitches whole file blocks), computed at the
                 # file's first frame.
                 file_shift = None
                 file_has_flags = None
-                for pos, vel, images, types, box in \
-                        iter_lammps_text_frames(path):
+                for pos, vel, images, types, box in frames:
                     self._check_box(box, path)
                     self._check_types(types, path)
                     if file_has_flags is None:
@@ -377,7 +385,10 @@ class TrajectoryStream:
         total = 0
         for path in self.filepaths:
             if _is_streamable_lammps(path):
-                total += count_lammps_text_frames(path)
+                scanned = None if _is_gz(path) else \
+                    native_loader.scan_dump_native(path)
+                total += (scanned[0] if scanned is not None
+                          else count_lammps_text_frames(path))
             else:
                 total += self._parse_eager(path)[1].shape[0]
         return total
