@@ -123,7 +123,31 @@ Phases, each printing one line (or a few) and failing hard:
    memory over the cube's bytes, and its dispatched operations, the same
    at 64 x 64 positions; with h5py, the 64 x 64 cube through save_4dstem
    and ``calibrate``, whose report.json equals the in-process result;
-22. a JSON line per kernel, the nvidia-smi line, and the final JSON line.
+22. multi-GPU: the (frame, probe) mesh on torch.distributed, the ranks
+   launched by torchrun (``pyslice_tpu_torch.parallel.dryrun``, each launch
+   with a time limit of its own; the kernels built here first, the ranks
+   only load them) and each held against a single-process run here. The
+   card is one, and NCCL refuses two ranks on one device: 22a one NCCL
+   rank on a 1 x 1 mesh, STEM at 1024^2 x 16 probes x 4 frames through
+   MultisliceCalculator(mesh=), bit-identical to the run without a mesh;
+   22b four Gloo ranks sharing the card on a 2 x 2 mesh: STEM at 1024^2 x
+   16 probes x 8 frames (A/B/C; the exit-wave blocks, the six TACAW
+   methods and HAADF to 1e-4 / the residual bar), config 5's
+   StreamingTACAW frame-sharded at 2048^2 x 64 probes x 8 frames (phase
+   12's bars; a checkpoint and resume a rank bit-identical, refused on
+   another mesh), msp_reconstruct(mesh=) at 1024^2 (A, B, K7; batch 16,
+   2 steps; the parameters the same bits on every rank, the first
+   minibatch's gradient to 1e-3), compute_smatrix(mesh=) at 512^2 (K6
+   power-of-two); 22c the same ranks on a 4 x 1 mesh of their own (one
+   start-up for both): the quick start frame-sharded at 1023^2, 8 frames,
+   one plane wave (K6 mixed, kx padded 1023 -> 1024), spectrum and
+   diffraction. On a machine with four cards 22b and 22c run NCCL, a card
+   a rank. Each part's launches, summed over the ranks (the counters are
+   per process), checked and added to the kernels line; the all_to_all's
+   seconds, ms a frame sharded against single-process (ranks that share
+   one card over Gloo: not a scaling figure). ``python3
+   chip_smoke.py --phase 22`` runs phases 1, 2 and 22 alone;
+23. a JSON line per kernel, the nvidia-smi line, and the final JSON line.
 
 Each kernel's record carries its bound: the least time an H100 could take
 for the launch timed, the larger of the bytes it must move (each input
@@ -518,27 +542,12 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES):
     return records
 
 
-def hbn_box(lx, n_frames, seed=0, lz=6.784):
+def hbn_box(lx, n_frames, seed=0):
     """hBN monolayer filling an lx x lx box (whole rectangular cells,
     a = 2.504 A, 4 atoms each) plus n_frames uniform thermal frames of
-    0.05 A from a seeded torch.Generator."""
-    import numpy as np
-    import torch
-    from pyslice_tpu_torch import Trajectory
-    a = 2.504
-    by = np.sqrt(3.0) * a
-    z0 = lz / 4.0
-    base = np.array([[0.0, 0.0, z0], [a / 2, by / 6, z0],
-                     [a / 2, by / 2, z0], [0.0, by / 2 + by / 6, z0]])
-    ncx, ncy = int(lx // a), int(lx // by)
-    pos = np.concatenate([base + np.array([i * a, j * by, 0.0])
-                          for i in range(ncx) for j in range(ncy)])[None]
-    types = np.tile(np.array([5, 7, 5, 7], dtype=np.int32), ncx * ncy)
-    traj = Trajectory(atom_types=types, positions=pos,
-                      velocities=np.zeros_like(pos),
-                      box_matrix=np.diag([lx, lx, lz]), timestep=0.005)
-    return traj.generate_random_displacements(
-        n_frames, 0.05, generator=torch.Generator().manual_seed(seed))
+    0.05 A from a seeded torch.Generator (the dry run's hbn_box)."""
+    from pyslice_tpu_torch.parallel.dryrun import hbn_box as build
+    return build(lx, n_frames, seed)
 
 
 def slice_phase(dev, card, lx=102.35, n_frames=N_FRAMES):
@@ -2301,6 +2310,353 @@ def calibration_phase(dev, card, tmp, lx=CAL_LX, scan=CAL_SCAN,
           f"{math.degrees(got['rotation_rad']):.3f} deg)")
     return total
 
+MG_TIMEOUT = 300        # s, each torchrun launch of phase 22 (killed past it)
+MG_STEM_FRAMES, MG_QUICK_FRAMES = 8, 8
+MG_MSP_STEPS, MG_SM_SCAN = 2, 16
+
+
+def stem_setup_kw():
+    import pyslice_tpu_torch as pt
+    return dict(aperture=30.0, voltage_eV=100e3, sampling=0.1,
+                slice_thickness=0.5,
+                probe_positions=pt.probe_grid([10, 90], [10, 90], 4,
+                                              4).tolist())
+
+
+def rank_counts(res, part):
+    """The ranks' launch counts of one part, summed (counters are per
+    process)."""
+    total = {}
+    for _, rec in res:
+        for k, v in rec["counts"].get(part, {}).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def rank_blocks(res, key):
+    """{(frame, probe) coordinate: the rank's block of ``key``}."""
+    return {(r["coords"]["frame"], r["coords"]["probe"]): a[key]
+            for a, r in res if key in a}
+
+
+def free_card(tmp):
+    """Free the allocator's cached blocks before ranks that share this card
+    start, and print what is free (card and disk)."""
+    import gc
+    import shutil
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, size = torch.cuda.mem_get_info()
+    print(f"  card {gib(free):.1f} of {gib(size):.1f} GiB free, this process "
+          f"holding {gib(torch.cuda.memory_allocated()):.2f} GiB "
+          f"({gib(torch.cuda.memory_reserved()):.2f} reserved); "
+          f"{gib(shutil.disk_usage(tmp).free):.1f} GiB free on disk")
+
+
+def launch_ranks(what, tmp, nproc, mesh, backend, config, device="cuda"):
+    """The dry run in ``nproc`` ranks on the card (the kernels built here
+    already, so the ranks only load them). A failed or late rank fails the
+    phase. Starts no CUDA work of its own (22a's launch runs in a thread)."""
+    from pyslice_tpu_torch.parallel import dryrun
+    t0 = time.perf_counter()
+    try:
+        res = dryrun.launch(tmp, nproc, device=device, backend=backend,
+                            mesh=mesh, config=config, timeout=MG_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        raise SystemExit(f"chip_smoke FAILED: {what}: {e}")
+    wall = time.perf_counter() - t0
+    a2a = max(rec["stats"]["all_to_all_s"] for _, rec in res)
+    print(f"  {what}: {nproc} rank(s), mesh {res[0][1]['mesh']}, backend "
+          f"{res[0][1]['backend']}, {wall:.1f} s with start-up; all_to_all "
+          f"{a2a:.4f} s (the slowest rank's); every collective on the "
+          "ranks' own tensors (none staged through host memory by the "
+          "port)")
+    print(f"    rank 0's wall (s): "
+          f"{ {k: round(v, 2) for k, v in res[0][1]['wall'].items()} }; "
+          f"peak device memory a rank (GiB): "
+          f"{[round(gib(r.get('peak_bytes', 0)), 2) for _, r in res]}")
+    for _, rec in res:
+        print(f"    rank {rec['rank']} {rec['coords']}: launches "
+              f"{ {p: {k: v for k, v in c.items() if v} for p, c in rec['counts'].items()} }")
+    return res
+
+
+def require_launched(what, counts, want):
+    print(f"  {what}: launches summed over the ranks {counts}, expected "
+          f"{want}")
+    require(counts == want, f"{what}: the ranks did not run exactly their "
+            "kernels")
+
+
+def multigpu_phase(dev, card, tmp, stem_lx=102.35, stream_lx=STREAM_LX,
+                   stream_scan=STREAM_SCAN, msp_scan=MSP_SCAN, sm_lx=SM_LX,
+                   sm_scan=MG_SM_SCAN, quick_lx=102.25):
+    """Phase 22: the (frame, probe) mesh on torch.distributed. 22a one NCCL
+    rank (1 x 1), 22b four Gloo ranks sharing the card (2 x 2: STEM, the
+    config-5 stream, msp_reconstruct, the S-matrix), 22c the same ranks on
+    a 4 x 1 mesh (the quick start frame-sharded at 1023^2). Each held
+    against a single-process run here. Returns the launch counts, K6 under
+    its engine's key. With four cards 22b and 22c run NCCL, a card a rank.
+    On a CPU ``dev`` (a rehearsal at smaller sizes) the ranks run on the
+    CPU and 22a on Gloo."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+    import numpy as np
+    import torch
+    import pyslice_tpu_torch as pt
+    from pyslice_tpu_torch.analysis import ptychography as ptycho
+    from pyslice_tpu_torch.engine import smatrix as smx
+    from pyslice_tpu_torch.engine.streaming import _haadf_mask
+    from pyslice_tpu_torch.parallel import dryrun
+
+    t_phase = time.perf_counter()
+    tmp = Path(tmp)
+    total = {}
+    rdev = dev.type
+    # four ranks: NCCL with a card each where the machine has four cards,
+    # else Gloo with the four sharing this one (NCCL refuses that)
+    cards = torch.cuda.device_count() if rdev == "cuda" else 0
+    four = "nccl" if cards >= 4 else "gloo"
+    how = ("on 4 cards over NCCL" if four == "nccl" else
+           "sharing one card over Gloo: time-sliced contexts, not a scaling "
+           "figure")
+    launch = lambda *a: launch_ranks(*a, device=rdev)
+    stem_kw = stem_setup_kw()
+
+    # --- 22b: four ranks share the card over Gloo, a 2 x 2 mesh -----------
+    out = tmp / "22b"
+    out.mkdir()
+    stem_traj = hbn_box(stem_lx, MG_STEM_FRAMES)
+    dryrun.save_trajectory(out / "stem.npz", stem_traj)
+    s_traj, s_g, s_spec, s_pg, s_base = stream_setup(dev, stream_lx,
+                                                     STREAM_FRAMES,
+                                                     stream_scan)
+    dryrun.save_trajectory(out / "stream.npz", s_traj)
+    stream_kw = dict(aperture=25.0, voltage_eV=100e3, sampling=0.1,
+                     slice_thickness=0.5, probe_positions=s_pg.tolist())
+    m_traj = hbn_box(stem_lx, 1)
+    mcalc = pt.MultisliceCalculator(device=dev)
+    half = 0.5 * MSP_STEP_A * (msp_scan - 1)
+    span = [0.5 * stem_lx - half, 0.5 * stem_lx + half]
+    mcalc.setup(m_traj, aperture=30.0, voltage_eV=100e3, sampling=0.1,
+                slice_thickness=0.5,
+                probe_positions=pt.probe_grid(span, span, msp_scan, msp_scan),
+                device_output=True, use_cache=False)
+    mwf = mcalc.run(progress=False)
+    mdata = (mwf.wavefunction_data[:, 0, :, :, 0].abs() ** 2).cpu().numpy()
+    v_init = 0.5 * pt.rasterize(torch.as_tensor(m_traj.positions[0],
+                                                device=dev), mcalc.spec.plan)
+    np.savez(out / "msp.npz", data=mdata,
+             scan=np.asarray(mcalc.probe_positions, np.float64),
+             probe=mcalc.base_probe.array.cpu().numpy(),
+             xs=np.asarray(mcalc.xs), ys=np.asarray(mcalc.ys), mrad=30.0,
+             eV=100e3, n_slices=mcalc.nz, dz=0.5,
+             v_init=v_init.cpu().numpy())
+    del mwf
+    sm_traj = hbn_box(sm_lx, 1)
+    dryrun.save_trajectory(out / "sm.npz", sm_traj)
+    sm_span = [0.5, sm_lx - 0.5]
+    sm_kw = dict(aperture=25.0, voltage_eV=100e3, sampling=0.1,
+                 slice_thickness=0.5,
+                 probe_positions=pt.probe_grid(sm_span, sm_span, sm_scan,
+                                               sm_scan).tolist())
+    msp_kw = {"steps": MG_MSP_STEPS, "batch": MSP_BATCH, "seed": 0}
+    q_traj = hbn_box(quick_lx, MG_QUICK_FRAMES)
+    dryrun.save_trajectory(out / "quick.npz", q_traj)
+    q_kw = dict(aperture=0.0, voltage_eV=100e3, sampling=0.1,
+                slice_thickness=0.5, probe_positions=None)
+    # --- 22a: one rank on NCCL, a 1 x 1 mesh (launched beside 22b's ranks,
+    # so that the two start-ups overlap) ------------------------------------
+    out_a = tmp / "22a"
+    out_a.mkdir()
+    dryrun.save_trajectory(out_a / "stem.npz", hbn_box(stem_lx, 4))
+    if rdev == "cuda":
+        free_card(tmp)
+    pool = ThreadPoolExecutor(1)
+    job_a = pool.submit(
+        launch, "22a STEM 1024^2 x 16 probes x 4 frames through "
+        "MultisliceCalculator(mesh=)", out_a, 1, "1x1",
+        "nccl" if rdev == "cuda" else "gloo",
+        {"precision": "single", "problem": "stem.npz", "setup": stem_kw,
+         "parts": ["stem"], "stem": {"compare_unsharded": True,
+                                     "save_waves": False, "warmup": True}})
+    # 22c runs in the same ranks, on a 4 x 1 mesh of its own (one start-up)
+    res = launch(
+        "22b STEM 1024^2 x 16 probes x 8 frames, config 5's StreamingTACAW "
+        "at 2048^2 x 64 probes, msp_reconstruct at 1024^2, compute_smatrix "
+        f"at 512^2; 22c the quick start at 1023^2 x {MG_QUICK_FRAMES} frames "
+        "on a 4 x 1 mesh", out, 4, "2x2", four,
+        {"precision": "single", "problem": "stem.npz", "setup": stem_kw,
+         "parts": ["stem", "stream", "msp", "smatrix", "quick"],
+         "stem": {"warmup": True, "functions": False},
+         "quick": {"part": "stem", "mesh": "4x1", "problem": "quick.npz",
+                   "setup": q_kw, "save_waves": False, "warmup": True},
+         "stream": {"problem": "stream.npz", "setup": stream_kw,
+                    "frequencies": STREAM_FREQS, "haadf": False},
+         "msp": {"file": "msp.npz", "kwargs": msp_kw},
+         "smatrix": {"problem": "sm.npz", "setup": sm_kw}})
+    res_a = job_a.result()
+    pool.shutdown()
+    rec = res_a[0][1]
+    nx, ny, nz, nf = rec["stem_grid"]
+    print(f"  22a exit waves against the run without a mesh: bit-identical "
+          f"{rec['checks']['unsharded_bitwise']}, max|d| "
+          f"{rec['checks']['unsharded_max_abs']:.3e}")
+    require(rec["checks"]["unsharded_bitwise"],
+            "22a: the 1 x 1 NCCL mesh changed the exit waves")
+    counts = rank_counts(res_a, "stem")
+    require_launched("22a", counts, want_counts(a=nf * nz, b=nf * (nz - 1),
+                                                c=nf))
+    add_counts(total, counts)
+    a0 = res[0][0]
+    nx, ny, nz, nf = res[0][1]["stem_grid"]
+
+    # STEM against the single-process run on the card
+    calc = pt.MultisliceCalculator(device=dev)
+    calc.setup(stem_traj, device_output=True, use_cache=False, **stem_kw)
+    calc.run(progress=False)                              # warm-up
+    wf, _, single_s = launches_of(lambda: calc.run(progress=False))
+    ref = wf.wavefunction_data
+    fb, pb = nf // 2, calc.n_probes // 2
+    for (f, p), blk in sorted(rank_blocks(res, "wf").items()):
+        check(f"exit waves, rank block (frame {f}, probe {p})",
+              torch.as_tensor(blk, device=dev),
+              ref[p * pb:(p + 1) * pb, f * fb:(f + 1) * fb])
+    tac = pt.TACAWData(wf)
+    f1 = float(a0["arg_f1"])
+    last = int(a0["arg_last"])
+    kxp, kyp, mask = a0["arg_kx_path"], a0["arg_ky_path"], a0["arg_mask"]
+    for name, want in (
+            ("spectrum", tac.spectrum()),
+            ("spectrum_p", tac.spectrum(last)),
+            ("spectrum_image", tac.spectrum_image(f1)),
+            ("diffraction", tac.diffraction()),
+            ("diffraction_p", tac.diffraction(last)),
+            ("spectral_diffraction", tac.spectral_diffraction(f1)),
+            ("spectral_diffraction_p", tac.spectral_diffraction(f1, last)),
+            ("masked_spectrum", tac.masked_spectrum(mask)),
+            ("masked_spectrum_p", tac.masked_spectrum(mask, last)),
+            ("dispersion", tac.dispersion(kxp, kyp)),
+            ("dispersion_p", tac.dispersion(kxp, kyp, last))):
+        check_np(f"TACAW {name}", a0["tacaw_" + name], want)
+    check_np("HAADF", a0["adf"], pt.HAADFData(wf).calculateADF(45))
+    sharded_s = max(r["seconds"]["stem"] for _, r in res)
+    print(f"  STEM ms/frame: sharded {1e3 * sharded_s / nf:.1f} (4 ranks "
+          f"{how}), single-process {1e3 * single_s / nf:.1f}; card {card}")
+    counts = rank_counts(res, "stem")
+    require_launched("22b STEM", counts, want_counts(
+        a=2 * nf * nz, b=2 * nf * (nz - 1), c=2 * nf))
+    add_counts(total, counts)
+    del wf, ref, tac, calc
+
+    # config 5's stream against the single-process stream (phase 12's bars)
+    probes = pt.create_batched_probes(s_base, s_pg).array
+    st = pt.StreamingTACAW(s_spec, probes, STREAM_FRAMES, s_traj.timestep,
+                           frequencies=STREAM_FREQS,
+                           probe_chunk=STREAM_CHUNK)
+    st.add_frame_block(list(range(STREAM_FRAMES)), s_traj.positions)
+    inten = st.intensity()
+    del st
+    pb = stream_scan ** 2 // 2
+    for (f, p), blk in sorted(rank_blocks(res, "stream_intensity").items()):
+        errs = per_bin(torch.as_tensor(blk, device=dev),
+                       inten[:, p * pb:(p + 1) * pb])
+        for i, (d, rel, r) in enumerate(errs):
+            print(f"  stream bin {i}, probe block {p}: max|d| {d:.3e}  "
+                  f"max|d|/max|ref| {rel:.3e}  residual {r:.3e}")
+            require(rel <= STREAM_MAX_REL and r <= MAX_RESIDUAL,
+                    "the frame-sharded stream disagrees")
+    del inten
+    resumed = all(r["checks"]["stream_resume_bitwise"] for _, r in res)
+    refused = all(r["checks"]["resume_refused_on_other_mesh"]
+                  for _, r in res)
+    print(f"  stream checkpoint + resume, one file set a rank: bit-identical "
+          f"{resumed}; refused on a 1 x 4 mesh {refused}; "
+          f"{max(r['seconds']['stream_tacaw'] for _, r in res):.2f} s")
+    require(resumed and refused, "stream checkpoint/resume on the mesh")
+    counts = rank_counts(res, "stream_tacaw")
+    require_launched("22b stream", counts, want_counts(
+        a=STREAM_FRAMES * 2 * s_g.nz, b=STREAM_FRAMES * 2 * (s_g.nz - 1),
+        c=STREAM_FRAMES * 2))
+    add_counts(total, counts)
+
+    # msp_reconstruct(mesh=): parameters the same bits on every rank, the
+    # first minibatch's mesh-averaged gradient against one process's
+    for key in ("potential", "probe", "positions", "losses"):
+        vals = [a["msp_" + key] for a, _ in res]
+        require(all(np.array_equal(v, vals[0]) for v in vals[1:]),
+                f"msp {key} differs between ranks")
+    losses = a0["msp_losses"]
+    print(f"  msp_reconstruct: losses {losses}; parameters bit-identical on "
+          "the 4 ranks")
+    require(np.isfinite(losses).all(), "msp losses")
+    with np.load(out / "msp.npz") as z:
+        mp = {k: z[k] for k in z.files}
+    probe = pt.Probe(mp["xs"], mp["ys"], 30.0, 100e3, array=mp["probe"],
+                     device=dev)
+    run, batches = ptycho._msp_setup(mp["data"], mp["scan"], probe,
+                                     int(mp["n_slices"]), 0.5,
+                                     v_init=mp["v_init"], **msp_kw)
+    _, grads = run.grads(batches[0])
+    d, rel, _ = errors(torch.as_tensor(a0["msp_grad_v"], device=dev),
+                       grads["v"])
+    print(f"  dL/dV of minibatch 0, 4 ranks vs one process: max|d| {d:.3e} "
+          f" max|d|/max|ref| {rel:.3e}")
+    require(rel <= GRAD_REL, "the mesh-averaged gradient disagrees")
+    counts = rank_counts(res, "msp")
+    step = step_want(("a", "b", "k7"), int(mp["n_slices"]))
+    require_launched("22b msp", counts, {
+        k: 4 * MG_MSP_STEPS * v for k, v in step.items()})
+    add_counts(total, counts)
+    del run, grads, mp
+
+    # compute_smatrix(mesh=) against one process's S-matrix
+    calc = pt.MultisliceCalculator(device=dev)
+    calc.setup(sm_traj, use_cache=False, **sm_kw)
+    g = calc.grid
+    beams = smx.build_beams(g.xs, g.ys, 25.0, 100e3)
+    sm = smx.compute_smatrix(sm_traj.positions[0], calc.spec.plan, beams,
+                             xs=g.xs, ys=g.ys, dz=calc.spec.dz,
+                             beam_chunk=64, kmax2=calc.spec.kmax2,
+                             device=dev)
+    pp = np.asarray(calc.probe_positions)
+    check_np("S-matrix reduce", a0["smatrix_reduce"],
+             smx.smatrix_reduce(sm, pp, _haadf_mask(calc.spec, 45)))
+    check_np("S-matrix exit waves", a0["smatrix_exit"],
+             smx.smatrix_exit_kspace(sm, pp[:4]).cpu().numpy())
+    nb = beams.n_beams
+    n_ch = -(-(-(-nb // 64)) // 4) * 4
+    chunk = -(-nb // n_ch)
+    counts = rank_counts(res, "smatrix")
+    require_launched(f"22b compute_smatrix ({nb} beams, {n_ch} chunks over "
+                     "4 ranks)", counts, want_counts(k6=-(-nb // chunk)))
+    total["k6_pow2"] = total.get("k6_pow2", 0) + counts["k6"]
+    del sm, calc
+
+    # --- 22c: the quick start frame-sharded over the same ranks (4 x 1) ---
+    print(f"  22c quick start, a plane wave at 1023^2 x {MG_QUICK_FRAMES} "
+          "frames on the ranks' 4 x 1 mesh (kx padded 1023 -> 1024)")
+    a0 = res[0][0]
+    calc = pt.MultisliceCalculator(device=dev)
+    calc.setup(q_traj, device_output=True, use_cache=False, **q_kw)
+    calc.run(progress=False)                              # warm-up
+    wf, _, single_s = launches_of(lambda: calc.run(progress=False))
+    tac = pt.TACAWData(wf)
+    check_np("quick start spectrum", a0["quick_tacaw_spectrum"],
+             tac.spectrum())
+    check_np("quick start diffraction", a0["quick_tacaw_diffraction"],
+             tac.diffraction())
+    sharded_s = max(r["seconds"]["quick_stem"] for _, r in res)
+    print(f"  quick start ms/frame: sharded {1e3 * sharded_s / MG_QUICK_FRAMES:.1f}"
+          f" (4 ranks {how}), "
+          f"single-process {1e3 * single_s / MG_QUICK_FRAMES:.1f}; card {card}")
+    counts = rank_counts(res, "quick_stem")
+    require_launched("22c", counts, want_counts(k6=MG_QUICK_FRAMES))
+    total["k6_mixed"] = total.get("k6_mixed", 0) + counts["k6"]
+    print(f"  phase 22: {time.perf_counter() - t_phase:.1f} s; card {card}")
+    return total
+
 
 def main():
     import torch
@@ -2322,6 +2678,14 @@ def main():
             print(f"    {kernel_name(line.split(chr(39))[1])}:")
         elif "registers" in line or "spill" in line or line.startswith("---"):
             print(f"    {line.strip()}")
+    if sys.argv[1:] == ["--phase", "22"]:
+        # phase 22 alone (a quicker check of the multi-GPU path): no
+        # kernels line and no result line
+        with tempfile.TemporaryDirectory() as tmp:
+            print("[22] multi-GPU alone:")
+            print(multigpu_phase(dev, card, tmp))
+        print(card)
+        return 0
 
     print(f"[3] kernels A, B, C vs plain versions at {N_PROBES} x "
           f"{N_GRID}^2:")
@@ -2386,6 +2750,11 @@ def main():
         print(f"[21] measured-data calibration: {CAL_SCAN}^2 patterns at "
               f"256^2 (K6), float32 and float64:")
         imaging.append(calibration_phase(dev, card, tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        print("[22] multi-GPU: the (frame, probe) mesh on torch.distributed "
+              "(22a one NCCL rank; 22b, 22c four ranks, on Gloo sharing the "
+              "card where there is one):")
+        imaging.append(multigpu_phase(dev, card, tmp))
     counts.update(k4=odd["k4"] + thermal["k4"], k5=odd["k5"] + thermal["k5"],
                   k6_mixed=k6_mixed + thermal["k6"],
                   k6_pow2=k6_pow2 + k6_sm, k7=k7, k8=k8)

@@ -14,7 +14,8 @@ Commands:
     info       — parse a trajectory file and print its shape/box summary.
     calibrate  — calibrate a measured 4D-STEM datacube (HDF5/EMD): writes
                  calibrated.emd, com.npy and report.json.
-    devices    — show the CUDA devices and the default (frame, probe) mesh.
+    devices    — show the CUDA devices and the default (frame, probe) mesh
+                 (under torchrun also the world and make_mesh()'s layout).
 
 Example:
     python -m pyslice_tpu_torch run --trajectory md.lammpstrj \\
@@ -26,6 +27,7 @@ Example:
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from pathlib import Path
@@ -221,6 +223,16 @@ def cmd_devices(args) -> int:
         return 1
     f, p = factor_mesh(n)
     print(f"default mesh: frame={f} x probe={p}")
+    if "WORLD_SIZE" in os.environ:
+        # under torchrun: the world make_mesh() lays out, rank-major
+        world = int(os.environ["WORLD_SIZE"])
+        f, p = factor_mesh(world)
+        print(f"torchrun world: {world} rank(s), this is rank "
+              f"{os.environ.get('RANK', 0)} (local rank "
+              f"{os.environ.get('LOCAL_RANK', 0)} of "
+              f"{os.environ.get('LOCAL_WORLD_SIZE', world)})")
+        print(f"make_mesh(): frame={f} x probe={p}, ranks "
+              f"{np.arange(world).reshape(f, p).tolist()}")
     return 0
 
 

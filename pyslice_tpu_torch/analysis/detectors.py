@@ -17,8 +17,10 @@ standard detector geometries over it:
 The reductions over a WFData run on the device its wave data lies on (a
 tensor from ``device_output=True``; a host array reduces on the CPU) and
 return host arrays. Masks, binning, the radial profile and the MTF are
-host NumPy, as in the JAX package. A sharded WFData (a ``DTensor``) raises
-``NotImplementedError``: multi-GPU runs are not ported yet.
+host NumPy, as in the JAX package. A WFData sharded over a (frame, probe)
+mesh (a ``DTensor``) reduces through ``parallel.sharded``'s
+``collected_sharded`` and ``frame_mean_intensity_sharded``; every rank of
+the mesh calls the function and gets the replicated result.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel import sharded
 
 
 def _k_grids(kxs, kys):
@@ -80,20 +84,21 @@ def segmented_mask(kxs, kys, lam: float, inner_mrad: float,
 
 
 def _waves(wf_data) -> torch.Tensor:
-    """The WFData's wave data as a tensor (a host array without a copy);
-    a sharded (DTensor) WFData raises."""
-    wf = wf_data.wavefunction_data
-    if type(wf).__name__ == "DTensor":
-        raise NotImplementedError(
-            "sharded WFData (multi-GPU runs) is not ported yet (ROADMAP "
-            "queue 1, item 8: Multi-GPU)")
+    """The WFData's unsharded wave data as a tensor (a host array without
+    a copy; a DTensor on a mesh of size 1 as its local tensor)."""
+    wf = sharded.local_of(wf_data.wavefunction_data)
     return wf if isinstance(wf, torch.Tensor) else \
         torch.from_numpy(np.asarray(wf))
 
 
 def _collected(wf_data, mask, intensity: bool, layer_index: int = -1):
     """Per-(probe, segment) mean-over-frames masked k sum, on the wave
-    data's device."""
+    data's device (sharded wave data through collected_sharded)."""
+    mesh = sharded.sharded_mesh_of(wf_data.wavefunction_data)
+    if mesh is not None:
+        return sharded.collected_sharded(
+            wf_data.wavefunction_data, mesh, mask, layer_index=layer_index,
+            intensity=intensity).cpu().numpy()
     wf = _waves(wf_data)
     exits = wf[:, :, :, :, layer_index].abs()
     if intensity:
@@ -148,15 +153,31 @@ def virtual_image(wf_data, mask, intensity: bool = True,
 def center_of_mass(wf_data, layer_index: int = -1) -> np.ndarray:
     """DPC center-of-mass deflection <k> per scan point: (2, n_x, n_y)
     (kx and ky first moments of the frame-averaged intensity)."""
-    wf = _waves(wf_data)
-    inten = (wf[:, :, :, :, layer_index].abs() ** 2).mean(dim=1)
-    as_k = lambda k: torch.as_tensor(np.asarray(k, dtype=np.float64),
-                                     device=inten.device).to(inten.dtype)
-    kx, ky = as_k(wf_data.kxs), as_k(wf_data.kys)
-    total = inten.sum(dim=(1, 2))
-    comx = (inten * kx[None, :, None]).sum(dim=(1, 2)) / total
-    comy = (inten * ky[None, None, :]).sum(dim=(1, 2)) / total
-    com = torch.stack([comx, comy], dim=0).cpu().numpy()
+    kx1 = np.asarray(wf_data.kxs, dtype=np.float64)
+    ky1 = np.asarray(wf_data.kys, dtype=np.float64)
+    wf = wf_data.wavefunction_data
+    mesh = sharded.sharded_mesh_of(wf)
+    if mesh is not None:
+        # three weight planes (1, kx, ky): the zeroth and first moments in
+        # one sharded reduction
+        nx, ny = wf.shape[2], wf.shape[3]
+        weights = np.stack([np.ones((nx, ny)),
+                            np.broadcast_to(kx1[:, None], (nx, ny)),
+                            np.broadcast_to(ky1[None, :], (nx, ny))])
+        col = sharded.collected_sharded(wf, mesh, weights,
+                                        layer_index=layer_index,
+                                        intensity=True).cpu().numpy()
+        com = np.stack([col[:, 1] / col[:, 0], col[:, 2] / col[:, 0]])
+    else:
+        w = _waves(wf_data)
+        inten = (w[:, :, :, :, layer_index].abs() ** 2).mean(dim=1)
+        as_k = lambda k: torch.as_tensor(k, device=inten.device) \
+            .to(inten.dtype)
+        kx, ky = as_k(kx1), as_k(ky1)
+        total = inten.sum(dim=(1, 2))
+        comx = (inten * kx[None, :, None]).sum(dim=(1, 2)) / total
+        comy = (inten * ky[None, None, :]).sum(dim=(1, 2)) / total
+        com = torch.stack([comx, comy], dim=0).cpu().numpy()
     xs, ys, nearest = _scan_grid(wf_data.probe_positions)
     return com[:, nearest].reshape(2, len(xs), len(ys))
 
@@ -206,6 +227,14 @@ def pacbed(wf_data, layer_index: int = -1, probe_indices=None
     standard fingerprint for thickness/tilt determination (LeBeau et al.,
     Ultramicroscopy 110, 2010). ``probe_indices`` restricts the average
     to a subset of scan positions (e.g. one unit cell)."""
+    mesh = sharded.sharded_mesh_of(wf_data.wavefunction_data)
+    if mesh is not None:
+        per = sharded.frame_mean_intensity_sharded(
+            wf_data.wavefunction_data, mesh, layer_index=layer_index)
+        if probe_indices is not None:
+            per = per[torch.as_tensor(np.asarray(probe_indices, np.int64),
+                                      device=per.device)]
+        return per.mean(dim=0).cpu().numpy()
     w = _waves(wf_data)[..., layer_index]
     if probe_indices is not None:
         w = w[torch.as_tensor(np.asarray(probe_indices, dtype=np.int64),

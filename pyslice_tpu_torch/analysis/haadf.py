@@ -11,7 +11,9 @@ Counterpart of ``pyslice_tpu/analysis/haadf.py`` (reference
 Quirk 11, kept as the default: the signal sums the *amplitude* |psi_hat|,
 not the intensity; ``intensity=True`` gives the |psi_hat|^2 detector.
 Device-resident WFData reduce on their device; only the (n_probes,)
-signal crosses to the host.
+signal crosses to the host. A WFData sharded over a (frame, probe) mesh
+reduces through ``parallel.sharded.collected_sharded`` (an all_reduce over
+frames, an all-gather over probes; every rank of the mesh calls it).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import sharded
 from .wf_data import WFData
 
 
@@ -59,13 +62,20 @@ class HAADFData:
         nearest = np.argmin(d2, axis=1)
 
         wf = self.wavefunction_data
-        if not isinstance(wf, torch.Tensor):
-            wf = torch.from_numpy(np.asarray(wf))
-        exits = wf[:, :, :, :, -1].abs()
-        if intensity:
-            exits = exits ** 2
-        m = torch.as_tensor(mask, device=exits.device).to(exits.dtype)
-        collected = (exits * m).sum(dim=(2, 3)).mean(dim=1).cpu().numpy()
+        mesh = sharded.sharded_mesh_of(wf)
+        if mesh is not None:
+            collected = sharded.collected_sharded(
+                wf, mesh, mask, intensity=intensity)[:, 0].cpu().numpy()
+        else:
+            wf = sharded.local_of(wf)
+            if not isinstance(wf, torch.Tensor):
+                wf = torch.from_numpy(np.asarray(wf))
+            exits = wf[:, :, :, :, -1].abs()
+            if intensity:
+                exits = exits ** 2
+            m = torch.as_tensor(mask, device=exits.device).to(exits.dtype)
+            collected = (exits * m).sum(dim=(2, 3)).mean(dim=1) \
+                .cpu().numpy()
         self.adf = collected[nearest].reshape(len(self.xs), len(self.ys))
         return self.adf
 

@@ -31,8 +31,10 @@ Conventions: detector axes arrive fftshifted (the WFData layout); the
 solvers run in natural FFT order. Probe shifts are exact k-space phase
 ramps exp(2 pi i k . pos) (quirk 14, as ``physics.probe.shift_probes``),
 so the probe listed at R sits physically at c - R (c the base probe's
-centre). ``mesh=`` and a sharded WFData (multi-GPU runs) raise
-``NotImplementedError`` (ROADMAP queue 1, item 8).
+centre). A WFData sharded over a (frame, probe) mesh reduces through
+``parallel.sharded`` in ``scan_grid_data``, and ``msp_reconstruct(mesh=)``
+splits every minibatch over the mesh's ranks (data parallelism; one
+all_reduce of the loss and the gradients a step).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import torch
 
 from ..core.dtypes import DOUBLE, SINGLE
 from ..physics.adjoint import multislice_diff
+from ..parallel import sharded
 from .detectors import _scan_grid, _waves
 
 
@@ -54,10 +57,16 @@ def scan_grid_data(wf_data, layer_index: int = -1):
     (n_sx, n_sy, nkx, nky), a host array: the frame-averaged detector
     intensity a scan point (the nearest probe to each point of the
     unique-x by unique-y grid, as ``HAADFData.calculateADF``). A WFData on
-    the card reduces there; a sharded one (a ``DTensor``) raises.
+    the card reduces there; a sharded one through
+    ``frame_mean_intensity_sharded`` (every rank of its mesh calls this).
     """
-    wf = _waves(wf_data)
-    inten = (wf[:, :, :, :, layer_index].abs() ** 2).mean(dim=1)
+    mesh = sharded.sharded_mesh_of(wf_data.wavefunction_data)
+    if mesh is not None:
+        inten = sharded.frame_mean_intensity_sharded(
+            wf_data.wavefunction_data, mesh, layer_index=layer_index)
+    else:
+        wf = _waves(wf_data)
+        inten = (wf[:, :, :, :, layer_index].abs() ** 2).mean(dim=1)
     xs, ys, nearest = _scan_grid(wf_data.probe_positions)
     data4d = inten[torch.as_tensor(nearest, device=inten.device)]
     return xs, ys, data4d.reshape(len(xs), len(ys), *inten.shape[-2:]) \
@@ -167,36 +176,65 @@ def _msp_loss(v, modes, pos_b, a_b, kx, ky, *, eV: float, dz: float, prec,
 class _MspRun:
     """The state of one ``msp_reconstruct`` solve: the parameters (V, the
     probe modes, the scan positions), their Adam steps, and the data on
-    the device. ``step(idx)`` takes one Adam step on minibatch ``idx``."""
+    the device. ``step(idx)`` takes one Adam step on minibatch ``idx``.
+
+    With a ``mesh`` each rank takes its block of every minibatch (in the
+    mesh's row-major order, as JAX shards over all mesh devices); the
+    loss and the gradients are averaged over the ranks with one
+    all_reduce each, so the parameters and the Adam state stay the same on
+    every rank (equal local batches make the mean of local-mean gradients
+    the global-mean gradient)."""
 
     def __init__(self, amps, positions, v0, modes0, kx, ky, *, lr_v,
                  lr_probe, lr_pos, eV, dz, update_probe, update_positions,
-                 loss, reg_tv):
+                 loss, reg_tv, mesh=None):
         self.amps, self.kx, self.ky = amps, kx, ky
         self.v, self.modes, self.pos = v0, modes0, positions
         self.prec = _precision_of(v0.dtype)
         self.kw = dict(eV=eV, dz=dz, prec=self.prec, loss=loss,
                        reg_tv=reg_tv)
+        self.mesh = mesh
         self.adam = {"v": _adam(lr_v)}
         if update_probe:
             self.adam["modes"] = _adam(lr_probe)
         if update_positions:
             self.adam["pos"] = _adam(lr_pos)
 
-    def step(self, idx) -> torch.Tensor:
-        """One Adam step on the parameters being refined; returns the
-        minibatch loss."""
+    def grads(self, idx):
+        """(loss, {name: gradient}) of minibatch ``idx`` for the parameters
+        being refined, averaged over the mesh's ranks."""
         params = {k: getattr(self, k).detach().requires_grad_()
                   for k in self.adam}
         get = lambda k: params.get(k, getattr(self, k))
+        idx = np.asarray(idx)
+        if self.mesh is not None:
+            from ..parallel.mesh import flat_index
+            n_loc = len(idx) // self.mesh.size()
+            r = flat_index(self.mesh)
+            idx = idx[r * n_loc:(r + 1) * n_loc]
         idx = torch.as_tensor(idx, device=self.amps.device).long()
         val = _msp_loss(get("v"), get("modes"), get("pos")[idx],
                         self.amps[idx], self.kx, self.ky, **self.kw)
-        grads = torch.autograd.grad(val, list(params.values()))
+        grads = dict(zip(params, torch.autograd.grad(val,
+                                                     list(params.values()))))
+        val = val.detach()
+        if self.mesh is not None:
+            from ..parallel.mesh import world_group
+            w = self.mesh.size()
+            group = world_group(self.mesh)
+            val = sharded.all_reduce(val.clone(), group) / w
+            grads = {k: sharded.all_reduce(g, group) / w
+                     for k, g in grads.items()}
+        return val, grads
+
+    def step(self, idx) -> torch.Tensor:
+        """One Adam step on the parameters being refined; returns the
+        minibatch loss."""
+        val, grads = self.grads(idx)
         with torch.no_grad():
-            for k, g in zip(params, grads):
+            for k, g in grads.items():
                 setattr(self, k, self.adam[k](getattr(self, k), g))
-        return val.detach()
+        return val
 
 
 def msp_reconstruct(data4d, probe_positions, probe, n_slices: int,
@@ -220,17 +258,38 @@ def msp_reconstruct(data4d, probe_positions, probe, n_slices: int,
     v_init the initial (n_slices, nx, ny) potential (default 0); n_modes /
     probe_modes a mixed-state probe of mutually incoherent modes; loss
     "amplitude" (detector-amplitude MSE) or "poisson" (counts); reg_tv a
-    total-variation prior weight. ``mesh`` (data parallelism over several
-    cards) is not ported yet.
+    total-variation prior weight. ``mesh``: a ('frame', 'probe')
+    DeviceMesh spanning the job; every minibatch is split over all its
+    ranks (each rank calls this with the same arguments), and the
+    minibatch size must divide by the rank count.
 
     Returns dict with ``potential`` (n_slices, nx, ny), ``probe`` (nx, ny,
     the dominant mode), ``probe_modes`` (K, nx, ny), ``positions``
     (npos, 2) and ``losses`` (steps,), as NumPy arrays.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "msp_reconstruct(mesh=) (data parallelism over several cards) is "
-            "not ported yet (ROADMAP queue 1, item 8: Multi-GPU)")
+    run, batches = _msp_setup(
+        data4d, probe_positions, probe, n_slices, dz, steps=steps,
+        batch=batch, lr=lr, lr_probe=lr_probe, lr_pos=lr_pos,
+        update_probe=update_probe, update_positions=update_positions,
+        v_init=v_init, seed=seed, mesh=mesh, n_modes=n_modes,
+        probe_modes=probe_modes, loss=loss, reg_tv=reg_tv)
+    rd = probe.precision.np_real
+    losses = [run.step(idx) for idx in batches]
+    pr = run.modes.cpu().numpy()
+    return dict(potential=run.v.cpu().numpy(), probe=pr[0], probe_modes=pr,
+                positions=run.pos.cpu().numpy(),
+                losses=np.asarray([float(l) for l in losses], rd))
+
+
+def _msp_setup(data4d, probe_positions, probe, n_slices: int, dz: float,
+               steps: int = 300, batch: Optional[int] = None,
+               lr: float = 30.0, lr_probe: float = 2e-3, lr_pos: float = 0.01,
+               update_probe: bool = False, update_positions: bool = False,
+               v_init=None, seed: int = 0, mesh=None, n_modes: int = 1,
+               probe_modes=None, loss: str = "amplitude",
+               reg_tv: float = 0.0):
+    """The checked inputs of ``msp_reconstruct`` as an ``_MspRun`` and its
+    (steps, batch) minibatch indices."""
     prec = probe.precision
     dev = probe.device
     data = np.asarray(data4d)
@@ -273,6 +332,10 @@ def msp_reconstruct(data4d, probe_positions, probe, n_slices: int,
     amps = _detector_amplitudes(data)
 
     nb = npos if batch is None else int(min(batch, npos))
+    if mesh is not None and nb % mesh.size() != 0:
+        raise ValueError(
+            f"minibatch size {nb} must divide by the mesh's {mesh.size()} "
+            "devices (pass batch=...)")
     batches = _epoch_batches(npos, nb, steps, seed)
     if v_init is None:
         v0 = torch.zeros((n_slices,) + tuple(p0.shape), dtype=prec.real,
@@ -290,12 +353,8 @@ def msp_reconstruct(data4d, probe_positions, probe, n_slices: int,
                   eV=float(probe.eV), dz=float(dz),
                   update_probe=bool(update_probe),
                   update_positions=bool(update_positions), loss=str(loss),
-                  reg_tv=float(reg_tv))
-    losses = [run.step(idx) for idx in batches]
-    pr = run.modes.cpu().numpy()
-    return dict(potential=run.v.cpu().numpy(), probe=pr[0], probe_modes=pr,
-                positions=run.pos.cpu().numpy(),
-                losses=np.asarray([float(l) for l in losses], rd))
+                  reg_tv=float(reg_tv), mesh=mesh)
+    return run, batches
 
 
 def _uniform_step(axis, name: str) -> float:

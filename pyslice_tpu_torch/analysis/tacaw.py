@@ -15,8 +15,14 @@ analysis methods reduce |Psi(omega, q)|^2 and return NumPy arrays:
   k lookups -> (n_freq, n_k).
 
 ``intensity`` is a tensor for device-resident WFData and a NumPy array for
-host WFData, as in the JAX package. The mesh-sharded branch is not ported
-yet (ROADMAP queue 1, item 8: Multi-GPU).
+host WFData, as in the JAX package. A WFData sharded over a (frame, probe)
+mesh (``setup(mesh=...)``) takes the sharded branch: the exit waves are
+traded from frame shards to kx stripes by one all_to_all
+(``parallel.sharded.tacaw_intensity_sharded``), the intensity stays a
+k-sharded DTensor with kx zero-padded to the frame extent, and every
+method reduces it with collectives and returns the replicated result
+(every rank of the mesh must call it). ``intensity`` crops the pad on
+access. On a mesh of size 1 the local tensor takes the unsharded path.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..parallel import sharded
 from .wf_data import WFData
 
 
@@ -82,8 +89,49 @@ class TACAWData:
         n_freq = len(self.time)
         dt = self.time[1] - self.time[0]
         self.frequencies = np.fft.fftshift(np.fft.fftfreq(n_freq, d=dt))
-        self.intensity = time_fft_intensity(
-            self.wavefunction_data[:, :, :, :, layer_index])
+        wf = self.wavefunction_data
+        self._mesh = sharded.sharded_mesh_of(wf)
+        if self._mesh is not None:
+            self._nx = wf.shape[2]
+            self._intensity_full = sharded.tacaw_intensity_sharded(
+                wf, self._mesh, layer_index=layer_index, crop=False)
+            return
+        self._intensity = time_fft_intensity(
+            sharded.local_of(wf)[:, :, :, :, layer_index])
+
+    @property
+    def intensity(self):
+        """(probes, frequency, kx, ky), the reference attribute. Sharded:
+        the k-sharded DTensor with the kx pad cropped (each rank keeps its
+        stripe's rows)."""
+        if self._mesh is None:
+            return self._intensity
+        return sharded.crop_kx(self._intensity_full, self._mesh, self._nx)
+
+    @intensity.setter
+    def intensity(self, value):
+        self._mesh = None
+        self._intensity = value
+
+    def _probe_weights(self, probe_index: Optional[int]) -> np.ndarray:
+        n = self._intensity_full.shape[0]
+        if probe_index is None:
+            return np.full(n, 1.0 / n)
+        w = np.zeros(n)
+        w[probe_index] = 1.0
+        return w
+
+    def _per_probe(self, mask=None) -> np.ndarray:
+        return sharded.tacaw_probe_spectra_sharded(
+            self._intensity_full, self._mesh, mask=mask).cpu().numpy()
+
+    def _kplane(self, probe_index, freq_index=None) -> np.ndarray:
+        if probe_index is not None:
+            self._check_probe(probe_index)
+        return sharded.tacaw_kplane_sharded(
+            self._intensity_full, self._mesh,
+            self._probe_weights(probe_index),
+            freq_index=freq_index).cpu().numpy()[:self._nx]
 
     def _t(self) -> torch.Tensor:
         """The intensity as a tensor (zero-copy for host arrays)."""
@@ -96,6 +144,12 @@ class TACAWData:
 
     def spectrum(self, probe_index: Optional[int] = None) -> np.ndarray:
         """Sum over k-space -> (n_freq,); None averages probes."""
+        if self._mesh is not None:
+            per = self._per_probe()
+            if probe_index is None:
+                return per.mean(axis=0)
+            self._check_probe(probe_index)
+            return per[probe_index]
         it = self._t()
         if probe_index is None:
             return it.sum(dim=(2, 3)).mean(dim=0).cpu().numpy()
@@ -109,12 +163,16 @@ class TACAWData:
         freq_idx = int(np.argmin(np.abs(self.frequencies - frequency)))
         if probe_indices is None:
             probe_indices = list(range(len(self.probe_positions)))
+        if self._mesh is not None:
+            return self._per_probe()[np.asarray(probe_indices), freq_idx]
         it = self._t()
         sel = it[torch.as_tensor(probe_indices, device=it.device), freq_idx]
         return sel.sum(dim=(1, 2)).cpu().numpy()
 
     def diffraction(self, probe_index: Optional[int] = None) -> np.ndarray:
         """Sum over frequency -> (kx, ky)."""
+        if self._mesh is not None:
+            return self._kplane(probe_index)
         it = self._t()
         if probe_index is None:
             return it.sum(dim=1).mean(dim=0).cpu().numpy()
@@ -125,6 +183,8 @@ class TACAWData:
                              probe_index: Optional[int] = None) -> np.ndarray:
         """Nearest-frequency (kx, ky) slice."""
         freq_idx = int(np.argmin(np.abs(self.frequencies - frequency)))
+        if self._mesh is not None:
+            return self._kplane(probe_index, freq_idx)
         it = self._t()
         if probe_index is None:
             return it[:, freq_idx].mean(dim=0).cpu().numpy()
@@ -139,6 +199,14 @@ class TACAWData:
             raise ValueError(
                 f"Mask shape {mask.shape} doesn't match k-space shape "
                 f"({len(self.kxs)}, {len(self.kys)})")
+        if self._mesh is not None:
+            pad = self._intensity_full.shape[2] - self._nx
+            per = self._per_probe(np.pad(mask.astype(np.float64),
+                                         ((0, pad), (0, 0))))
+            if probe_index is None:
+                return per.mean(axis=0)
+            self._check_probe(probe_index)
+            return per[probe_index]
         it = self._t()
         m = torch.as_tensor(mask, device=it.device).to(it.dtype)
         if probe_index is None:
@@ -153,6 +221,13 @@ class TACAWData:
             np.abs(self.kxs[None, :] - np.asarray(kx_path)[:, None]), axis=1)
         ky_idx = np.argmin(
             np.abs(self.kys[None, :] - np.asarray(ky_path)[:, None]), axis=1)
+        if self._mesh is not None:
+            if probe_index is not None:
+                self._check_probe(probe_index)
+            return sharded.tacaw_dispersion_sharded(
+                self._intensity_full, self._mesh,
+                self._probe_weights(probe_index), kx_idx,
+                ky_idx).cpu().numpy()
         it = self._t()
         ix = torch.as_tensor(kx_idx, device=it.device)
         iy = torch.as_tensor(ky_idx, device=it.device)

@@ -3,8 +3,10 @@
 Counterpart of ``pyslice_tpu/analysis/wf_data.py`` (reference
 ``wf_data.py:9-28``): complex k-space exit waves with layout (probe, time,
 kx, ky, layer), already fftshifted, plus the coordinate axes and the base
-probe. ``wavefunction_data`` is a NumPy array (host run) or a tensor on
-the device that computed it (``device_output=True``).
+probe. ``wavefunction_data`` is a NumPy array (host run), a tensor on
+the device that computed it (``device_output=True``), or a ``DTensor``
+sharded over a (frame, probe) mesh (``setup(mesh=...)``; the frame axis
+shards dim 1, the probe axis dim 0, as JAX's P('probe', 'frame')).
 """
 
 from __future__ import annotations
@@ -17,8 +19,12 @@ import torch
 
 
 def to_numpy(a) -> np.ndarray:
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
-        else np.asarray(a)
+    """A host array of ``a``. A sharded DTensor is gathered first: every
+    rank of its mesh must call this."""
+    if isinstance(a, torch.Tensor):
+        from ..parallel.sharded import gather_full
+        return gather_full(a.detach()).cpu().numpy()
+    return np.asarray(a)
 
 
 @dataclasses.dataclass
@@ -42,7 +48,14 @@ class WFData:
         return self.wavefunction_data.shape[1]
 
     def save(self, path) -> None:
-        """Persist to a single .npz (the probe by its parameters)."""
+        """Persist to a single .npz (the probe by its parameters). Sharded
+        wave data is gathered on every rank of its mesh (each must call
+        this) and written by global rank 0 alone."""
+        import torch.distributed as dist
+        from ..parallel.sharded import is_sharded
+        waves = to_numpy(self.wavefunction_data)
+        if is_sharded(self.wavefunction_data) and dist.get_rank() != 0:
+            return
         np.savez_compressed(
             Path(path),
             probe_positions=np.asarray(self.probe_positions),
@@ -50,7 +63,7 @@ class WFData:
             kxs=np.asarray(self.kxs),
             kys=np.asarray(self.kys),
             layer=np.asarray(self.layer),
-            wavefunction_data=to_numpy(self.wavefunction_data),
+            wavefunction_data=waves,
             probe_xs=np.asarray(self.probe.xs),
             probe_ys=np.asarray(self.probe.ys),
             probe_mrad=np.asarray(self.probe.mrad),

@@ -15,8 +15,13 @@ Counterpart of ``pyslice_tpu/engine/calculator.py`` (reference
   per (base probe, probe positions) pair, so rebinding
   ``probe_positions`` after ``setup`` is honoured.
 * ``batch_size`` bounds the probes propagated per call.
+* ``setup(mesh=...)`` (a ``parallel.mesh.make_mesh`` DeviceMesh; every
+  rank runs the same calls) shards the run over (frame, probe): ``run()``
+  returns a WFData whose wave data is a DTensor on the ranks' devices,
+  reduced in place by TACAWData / HAADFData / the detectors. Construct the
+  calculator on the rank's device (``device="cuda"`` is the card
+  ``make_mesh`` made current).
 
-Not ported yet: ``mesh=`` (multi-GPU) raises ``NotImplementedError``;
 ``frame_block`` is gone, since eager PyTorch has no per-dispatch program to
 amortize.
 """
@@ -57,6 +62,7 @@ class MultisliceCalculator:
     def __init__(self, device, precision=None):
         self.device = torch.device(device)
         self.precision = get_precision(precision)
+        self.mesh = None
 
     def _generate_cache_key(self) -> str:
         """md5-12 of the simulation parameters, atomic positions included."""
@@ -117,11 +123,9 @@ class MultisliceCalculator:
         package's docstring for ``batch_size``, ``bandwidth_limit``,
         ``tilt`` and ``debye_waller``. ``aberrations``: an
         ``Aberrations`` or a dict of its coefficients, applied to the base
-        probe after ``defocus``."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-GPU runs) is not ported yet (ROADMAP queue 1, "
-                "item 8: Multi-GPU)")
+        probe after ``defocus``. ``mesh``: a ('frame', 'probe')
+        DeviceMesh; the frame and probe counts must divide by its
+        extents (checked here)."""
         if isinstance(aberrations, dict):
             aberrations = Aberrations(**aberrations)
         self.aberrations = aberrations
@@ -141,6 +145,7 @@ class MultisliceCalculator:
                         "(use WFData.save for checkpointing)")
             use_cache = False
         self.use_cache = use_cache
+        self.mesh = mesh
 
         grid = grid_from_trajectory(trajectory, sampling=sampling,
                                     slice_thickness=slice_thickness,
@@ -185,7 +190,11 @@ class MultisliceCalculator:
                                    bandwidth_limit=bandwidth_limit,
                                    tilt=tilt)
 
-        if device_output:
+        if mesh is not None:
+            from ..parallel.sharded import _check_divisible
+            _check_divisible(mesh, n_frames=self.n_frames,
+                             n_probes=self.n_probes)
+        elif device_output:
             self._warn_resident(device_memory_limit(self.device))
 
         self.output_dir = (Path(cache_root)
@@ -295,7 +304,24 @@ class MultisliceCalculator:
                     time.time() - t0)
         return self._wf_data(out)
 
+    def _run_mesh(self) -> WFData:
+        """Sharded run over the (frame, probe) mesh: each rank propagates
+        its frames for its probes (``parallel.sharded.run_sharded``); the
+        WFData holds the DTensor, and ``save_path`` writes wf_data.npz from
+        rank 0 after a gather."""
+        from ..parallel.sharded import run_sharded
+        t0 = time.time()
+        positions = torch.as_tensor(self.trajectory.positions,
+                                    device=self.device)
+        wf = run_sharded(positions, self._probes_array(), self.spec,
+                         self.mesh)
+        logger.info("Sharded simulation dispatched in %.2fs over mesh %s",
+                    time.time() - t0, tuple(self.mesh.shape))
+        return self._wf_data(wf)
+
     def run(self, progress: bool = True) -> WFData:
+        if self.mesh is not None:
+            return self._run_mesh()
         if self.device_output:
             return self._run_device(progress)
         t0 = time.time()

@@ -25,8 +25,11 @@ Struct Chem Imaging 3:13, 2017).
 
 Every function runs on the device of its inputs: ``compute_smatrix`` on
 ``device`` (the card unless ``device="cpu"``), the synthesis on the
-device of ``sm.s``. ``compute_smatrix(mesh=...)`` raises: multi-GPU runs
-are not ported yet.
+device of ``sm.s``. ``compute_smatrix(mesh=...)`` shards the beams over
+the ranks of a (frame, probe) mesh (or of one of its axes): each rank
+propagates its beam chunks, ``sm.s`` keeps only its rows, and the
+synthesis is a local partial product over the rank's beams followed by
+one all_reduce.
 """
 
 from __future__ import annotations
@@ -110,6 +113,10 @@ class SMatrix:
     ny: int
     dx: float
     dy: float
+    # Beam-sharded (compute_smatrix(mesh=)): ``s`` holds beams
+    # [beam_range[0], beam_range[1]) and the synthesis sums over ``group``.
+    beam_range: Optional[Tuple[int, int]] = None
+    group: object = None
 
     @property
     def window(self) -> Tuple[int, int]:
@@ -145,18 +152,21 @@ def compute_smatrix(positions, plan: RasterizerPlan, beams: BeamSet,
                     *, xs, ys, dz: float, precision: Optional[Precision] = None,
                     beam_chunk: int = 64, ksq=None, mesh=None,
                     kmax2: Optional[float] = None,
-                    device="cuda") -> SMatrix:
+                    device="cuda", axis: Optional[str] = None) -> SMatrix:
     """Propagate the beam basis through one frame's potential.
 
     positions: (n_atoms, 3) frame positions (rasterized with ``plan``), a
     tensor (its device runs the build) or an array placed on ``device``.
     ``beam_chunk`` bounds device memory: beams propagate in chunks of at
     most this many, split into the fewest near-equal chunks.
+
+    ``mesh``: a ('frame', 'probe') DeviceMesh; the chunk count is padded to
+    a multiple of the rank count and each rank propagates its block of
+    chunks (in the mesh's row-major order), keeping only its beams' rows.
+    ``axis`` shards over one mesh axis instead of all ranks (the
+    frame-sharded HAADF stream: each frame row builds its own frame's
+    basis over its probe axis).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "compute_smatrix(mesh=) (multi-GPU runs) is not ported yet "
-            "(ROADMAP queue 1, item 8: Multi-GPU)")
     if ksq is not None:
         raise ValueError(
             "oblique cells are not supported by the S-matrix path: beam "
@@ -177,6 +187,12 @@ def compute_smatrix(positions, plan: RasterizerPlan, beams: BeamSet,
     # The fewest <= beam_chunk chunks, balanced, so at most n_chunks - 1
     # dummy beams are propagated.
     n_chunks = -(-nb // max(1, min(beam_chunk, nb)))
+    group, first, n_mine = None, 0, n_chunks
+    if mesh is not None:
+        group, n_ranks, index = _beam_group(mesh, axis)
+        n_chunks = -(-n_chunks // n_ranks) * n_ranks
+        n_mine = n_chunks // n_ranks
+        first = index * n_mine
     chunk = -(-nb // n_chunks)
     pad = n_chunks * chunk - nb
     real = lambda a: torch.as_tensor(np.asarray(a, np.float64),
@@ -186,9 +202,13 @@ def compute_smatrix(positions, plan: RasterizerPlan, beams: BeamSet,
     xs_r, ys_r = real(xs), real(ys)
     kxs = np.fft.fftfreq(nx, d=dx)
     kys = np.fft.fftfreq(ny, d=dy)
-    s = torch.empty((nb, nx, ny), dtype=prec.complex, device=dev)
-    for c in range(n_chunks):
+    lo = min(first * chunk, nb)
+    hi = min((first + n_mine) * chunk, nb)
+    s = torch.empty((hi - lo, nx, ny), dtype=prec.complex, device=dev)
+    for c in range(first, first + n_mine):
         a, b = c * chunk, min((c + 1) * chunk, nb)
+        if a >= b:
+            continue
         waves = _plane_waves(kxb[c * chunk:(c + 1) * chunk],
                              kyb[c * chunk:(c + 1) * chunk], xs_r, ys_r,
                              prec.complex)
@@ -196,7 +216,7 @@ def compute_smatrix(positions, plan: RasterizerPlan, beams: BeamSet,
                          precision=prec, ksq=ksq, kmax2=kmax2)
         if f == 1:
             out = torch.fft.fftshift(torch.fft.fft2(out), dim=(-2, -1))
-        s[a:b] = out[:b - a]
+        s[a - lo:b - lo] = out[:b - a]
         del waves, out
     if f == 1:
         det_kxs, det_kys = np.fft.fftshift(kxs), np.fft.fftshift(kys)
@@ -204,7 +224,18 @@ def compute_smatrix(positions, plan: RasterizerPlan, beams: BeamSet,
         det_kxs = np.fft.fftshift(np.fft.fftfreq(nx // f, d=dx))
         det_kys = np.fft.fftshift(np.fft.fftfreq(ny // f, d=dy))
     return SMatrix(beams=beams, s=s, kxs=det_kxs, kys=det_kys,
-                   npix=nx * ny, nx=nx, ny=ny, dx=dx, dy=dy)
+                   npix=nx * ny, nx=nx, ny=ny, dx=dx, dy=dy,
+                   beam_range=(lo, hi) if mesh is not None else None,
+                   group=group)
+
+
+def _beam_group(mesh, axis: Optional[str]):
+    """(process group, rank count, this rank's index) over which the beams
+    shard: one mesh axis, or every rank of a mesh that spans the job."""
+    from ..parallel.mesh import coord, extent, flat_index, world_group
+    if axis is not None:
+        return mesh.get_group(axis), extent(mesh, axis), coord(mesh, axis)
+    return world_group(mesh), mesh.size(), flat_index(mesh)
 
 
 def probe_coefficients(beams: BeamSet, probe_positions, npix: int,
@@ -296,7 +327,9 @@ def _synth_chunks(sm: SMatrix, probe_positions, precision, probe_chunk,
     f = sm.beams.f
     chunk = max(1, min(probe_chunk, p))
     wx, wy = sm.window
-    s_flat = sm.s.reshape(sm.beams.n_beams, -1)
+    s_flat = sm.s.reshape(sm.s.shape[0], -1)
+    if sm.group is not None:
+        coeffs = coeffs[:, sm.beam_range[0]:sm.beam_range[1]]
     if f > 1:
         sxa, sya = _window_starts(sm, probe_positions)
         ix = torch.as_tensor((sxa[:, None] + np.arange(wx)[None]) % sm.nx,
@@ -310,7 +343,12 @@ def _synth_chunks(sm: SMatrix, probe_positions, precision, probe_chunk,
     out = []
     for a in range(0, p, chunk):
         b = min(a + chunk, p)
-        e = torch.matmul(coeffs[a:b], s_flat).reshape(b - a, sm.nx, sm.ny)
+        e = torch.matmul(coeffs[a:b], s_flat)
+        if sm.group is not None:
+            # the rank's beams' partial product, summed over the ranks
+            from ..parallel.sharded import all_reduce
+            e = all_reduce(e, sm.group)
+        e = e.reshape(b - a, sm.nx, sm.ny)
         if f > 1:
             # each probe's replica window, gathered straight from the plane
             rows = torch.arange(b - a, device=dev)[:, None, None]

@@ -24,8 +24,17 @@ next chunk runs. The fold order within an accumulator is the feed order,
 so block feeding equals per-frame feeding bit for bit, and a restored
 checkpoint fed the remaining frames equals an uninterrupted stream.
 
-Everything runs on the device of the probe batch. ``mesh=`` raises:
-multi-GPU runs are not ported yet.
+Everything runs on the device of the probe batch.
+
+``mesh=`` (a ('frame', 'probe') DeviceMesh; every rank makes the same
+calls) shards both axes. Probes shard over the probe axis and accumulate
+locally. A frame extent F > 1 shards the stream: ``add_frame_block`` takes
+exactly F frames, every rank is given the same block and folds the one of
+its frame coordinate into a partial accumulator, and the results merge the
+frame partials with one all_reduce. ``probe_chunk`` and ``mesh`` are
+mutually exclusive. Checkpoints are one manifest and one set of files per
+rank (``manifest.p<rank>.json``, ``<name>.p<rank>.npy``); the key holds
+the mesh shape, so a restore on another topology is refused.
 """
 
 from __future__ import annotations
@@ -43,11 +52,68 @@ from ..physics.potential import rasterize
 from .pipeline import SimSpec, exit_waves_from_potential
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-GPU runs) is not ported yet (ROADMAP queue 1, "
-            "item 8: Multi-GPU)")
+def _mesh_probes(mesh, probes, n_frames: Optional[int] = None,
+                 probe_chunk=None):
+    """(this rank's probe block, frame extent) for a stream on ``mesh``,
+    with the JAX package's errors for what does not divide or combine."""
+    from ..parallel.mesh import FRAME_AXIS, PROBE_AXIS, extent
+    from ..parallel.sharded import block_of
+    p = extent(mesh, PROBE_AXIS)
+    if probes.shape[0] % p:
+        raise ValueError(
+            f"n_probes={probes.shape[0]} must be divisible by the mesh "
+            f"probe extent {p}")
+    if probe_chunk is not None:
+        raise ValueError("probe_chunk and mesh are mutually exclusive")
+    f = extent(mesh, FRAME_AXIS)
+    if n_frames is not None and n_frames % f:
+        raise ValueError(f"n_frames={n_frames} must be divisible by the "
+                         f"mesh frame extent {f}")
+    return probes[block_of(probes.shape[0], mesh, PROBE_AXIS)], f
+
+
+def _frame_row(mesh, frame_extent: int, pos: torch.Tensor, n: int):
+    """Check a frame-sharded block (exactly ``frame_extent`` frames of
+    ``pos``, ``n`` indices) and return this rank's frame of it."""
+    from ..parallel.mesh import FRAME_AXIS, coord
+    if n != frame_extent:
+        raise ValueError(
+            f"add_frame_block needs exactly {frame_extent} frames per call "
+            f"(mesh frame extent); got {n}")
+    if pos.dim() != 3 or pos.shape[0] != frame_extent:
+        raise ValueError(
+            f"positions_block must be ({frame_extent}, n_atoms, 3)")
+    return coord(mesh, FRAME_AXIS)
+
+
+def _frame_sharded_only(frame_extent: int) -> None:
+    if frame_extent > 1:
+        raise ValueError(
+            "this stream is frame-sharded (mesh frame extent "
+            f"{frame_extent} > 1); feed frames through add_frame_block")
+
+
+def _merge_frames(t: torch.Tensor, mesh, frame_extent: int) -> torch.Tensor:
+    """The sum of a frame-row partial over the frame axis (a copy; the
+    partial itself stays as it is for later feeding or a checkpoint)."""
+    if frame_extent == 1:
+        return t
+    from ..parallel.mesh import FRAME_AXIS
+    from ..parallel.sharded import all_reduce
+    return all_reduce(t.clone(), mesh.get_group(FRAME_AXIS))
+
+
+def _rank_tag(mesh) -> str:
+    """'' for a stream without a mesh, '.p<global rank>' with one."""
+    if mesh is None:
+        return ""
+    import torch.distributed as dist
+    return f".p{dist.get_rank()}"
+
+
+def _mesh_key(mesh):
+    """The mesh shape for a checkpoint key; None without a mesh."""
+    return None if mesh is None else tuple(int(n) for n in mesh.shape)
 
 
 def _positions(block, device) -> torch.Tensor:
@@ -107,15 +173,15 @@ def _load_array(d: Path, name: str, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(arr).to(device=like.device, dtype=like.dtype)
 
 
-def _write_manifest(d: Path, manifest: dict) -> None:
+def _write_manifest(d: Path, manifest: dict, tag: str = "") -> None:
     """The manifest, last, so that a checkpoint without one is incomplete."""
-    tmp = d / "manifest.json.tmp"
+    tmp = d / f"manifest{tag}.json.tmp"
     tmp.write_text(json.dumps(manifest))
-    tmp.replace(d / "manifest.json")
+    tmp.replace(d / f"manifest{tag}.json")
 
 
-def _read_manifest(d: Path, key: str) -> dict:
-    manifest = json.loads((Path(d) / "manifest.json").read_text())
+def _read_manifest(d: Path, key: str, tag: str = "") -> dict:
+    manifest = json.loads((Path(d) / f"manifest{tag}.json").read_text())
     if manifest["key"] != key:
         raise ValueError(
             "checkpoint config mismatch: the stream's parameters "
@@ -139,6 +205,8 @@ class StreamingTACAW:
         layer_index: recorded layer to analyze (default: the last).
         probe_chunk: at most this many probes' exit waves live at once;
             each chunk has its own accumulators. None = all at once.
+        mesh: a ('frame', 'probe') DeviceMesh (see the module docstring);
+            ``probes`` is the whole batch, and the rank keeps its block.
     """
 
     def __init__(self, spec: SimSpec, probes: torch.Tensor, n_frames: int,
@@ -146,8 +214,12 @@ class StreamingTACAW:
                  frequencies: Optional[Sequence[float]] = None,
                  layer_index: int = -1, probe_chunk: Optional[int] = None,
                  mesh=None):
-        _no_mesh(mesh)
         self.spec = spec
+        self.mesh = mesh
+        self._frame_extent = 1
+        if mesh is not None:
+            probes, self._frame_extent = _mesh_probes(mesh, probes, n_frames,
+                                                      probe_chunk)
         self.probes = probes
         self.n_frames = int(n_frames)
         self.timestep = float(timestep)
@@ -197,6 +269,7 @@ class StreamingTACAW:
 
     def add_frame(self, frame_index: int, positions) -> None:
         """Feed one MD frame (each index exactly once, any order)."""
+        _frame_sharded_only(self._frame_extent)
         t = int(frame_index)
         if t in self._seen:
             raise ValueError(f"frame {t} already streamed")
@@ -208,26 +281,34 @@ class StreamingTACAW:
         """Feed a block of frames: ``frame_indices`` (B,) and
         ``positions_block`` (B, n_atoms, 3). The whole block is checked
         before any state changes; its frames fold in order, exactly as B
-        calls of ``add_frame`` would."""
+        calls of ``add_frame`` would. Frame-sharded (mesh frame extent
+        F > 1): exactly F frames, the same block on every rank; each rank
+        folds the frame of its frame coordinate."""
         idx = [int(t) for t in frame_indices]
+        pos = _positions(positions_block, self.probes.device)
+        rows = range(len(idx))
+        if self._frame_extent > 1:
+            rows = [_frame_row(self.mesh, self._frame_extent, pos,
+                               len(idx))]
         dup = self._seen.intersection(idx)
         if dup or len(set(idx)) != len(idx):
             raise ValueError(f"frame indices fed more than once: "
                              f"{sorted(dup) or idx}")
-        pos = _positions(positions_block, self.probes.device)
         if pos.dim() != 3 or pos.shape[0] != len(idx):
             raise ValueError(
                 f"positions_block must be ({len(idx)}, n_atoms, 3), "
                 f"got {tuple(pos.shape)}")
         phases = self._phases(idx)
-        for k in range(len(idx)):
+        for k in rows:
             self._fold_frame(pos[k], phases[k])
         self._seen.update(idx)
 
     def intensity(self) -> torch.Tensor:
         """(n_selected, n_probes, nx, ny) real intensity, on the stream's
         device. The f=0 bin gets the mean-subtraction correction (for
-        integer bins X0 - n*mean is the only term it changes)."""
+        integer bins X0 - n*mean is the only term it changes). On a mesh:
+        a DTensor replicated over frames (the frame partials merged by one
+        all_reduce) and sharded over probes (dim 1)."""
         if len(self._seen) != self.n_frames:
             raise ValueError(
                 f"streamed {len(self._seen)} of {self.n_frames} frames")
@@ -236,19 +317,32 @@ class StreamingTACAW:
         out = torch.empty((nb, n_probes, nx, ny),
                           dtype=self.spec.precision.real,
                           device=self.probes.device)
+        # frame partials merged a bin at a time: one bin's copy in memory
+        merge = lambda t: _merge_frames(t, self.mesh, self._frame_extent)
         for i, sl in enumerate(self._chunk_slices):
-            acc = self._acc_chunks[i]
+            mean = merge(self._mean_chunks[i]) if self._track_mean else None
             for f in range(nb):
-                x = acc[f]
+                x = merge(self._acc_chunks[i][f])
                 if self._track_mean and self.bins[f] == 0:
-                    x = x - self._mean_chunks[i]
+                    x = x - mean
                 torch.abs(x, out=out[f, sl])
-        return out.square_()
+        out.square_()
+        if self.mesh is None:
+            return out
+        from ..parallel.mesh import PROBE_AXIS, extent
+        from ..parallel.sharded import _wrap
+        return _wrap(out, self.mesh, None, 1, shape=(
+            nb, n_probes * extent(self.mesh, PROBE_AXIS), nx, ny))
 
     def spectrum(self, probe_index: Optional[int] = None) -> np.ndarray:
         """k-summed spectrum at the selected bins (host array): the mean over
-        probes, or one probe's."""
-        s = self.intensity().sum(dim=(2, 3)).cpu().numpy()  # (n_sel, P)
+        probes, or one probe's. On a mesh every rank calls it and gets all
+        probes' values."""
+        from ..parallel.sharded import _replicate_over_probe, local_of
+        s = local_of(self.intensity()).sum(dim=(2, 3))      # (n_sel, P)
+        if self.mesh is not None:
+            s = _replicate_over_probe(s.T, self.mesh).T
+        s = s.cpu().numpy()
         if probe_index is None:
             return s.mean(axis=1)
         return s[:, probe_index]
@@ -261,13 +355,17 @@ class StreamingTACAW:
 
     def checkpoint_key(self) -> str:
         """md5-12 over everything that must match for a restore to be
-        valid (the JAX package's key tuple without its mesh entries)."""
+        valid (the JAX package's key tuple; the probe digest is the
+        rank's block's, and the mesh shape enters only with a mesh)."""
         g = self.spec.grid
-        params = str((g.nx, g.ny, g.nz, self.spec.eV, self.spec.dz,
-                      self.spec.record_layers, self.layer_index,
-                      self.n_frames, self.timestep,
-                      tuple(int(b) for b in self.bins), _digest(self.probes),
-                      tuple(s.start for s in self._chunk_slices)))
+        key = (g.nx, g.ny, g.nz, self.spec.eV, self.spec.dz,
+               self.spec.record_layers, self.layer_index,
+               self.n_frames, self.timestep,
+               tuple(int(b) for b in self.bins), _digest(self.probes),
+               tuple(s.start for s in self._chunk_slices))
+        if self.mesh is not None:
+            key += (_mesh_key(self.mesh),)
+        params = str(key)
         return hashlib.md5(params.encode()).hexdigest()[:12]
 
     def _arrays(self) -> dict:
@@ -283,22 +381,24 @@ class StreamingTACAW:
         temporary name and renamed."""
         d = Path(directory)
         d.mkdir(parents=True, exist_ok=True)
+        tag = _rank_tag(self.mesh)
         for name, arr in self._arrays().items():
-            _save_array(d, name, arr)
+            _save_array(d, name + tag, arr)
         _write_manifest(d, {"key": self.checkpoint_key(),
                             "seen": sorted(int(t) for t in self._seen),
-                            "n_frames": self.n_frames})
+                            "n_frames": self.n_frames}, tag)
 
     def restore(self, directory) -> set:
         """Load a checkpoint written by an identically configured stream.
         Returns the set of frame indices already folded in (feed the rest).
         Raises ValueError on a config mismatch."""
         d = Path(directory)
-        manifest = _read_manifest(d, self.checkpoint_key())
-        self._acc_chunks = [_load_array(d, f"acc_{i}", a)
+        tag = _rank_tag(self.mesh)
+        manifest = _read_manifest(d, self.checkpoint_key(), tag)
+        self._acc_chunks = [_load_array(d, f"acc_{i}{tag}", a)
                             for i, a in enumerate(self._acc_chunks)]
         if self._track_mean:
-            self._mean_chunks = [_load_array(d, f"mean_{i}", m)
+            self._mean_chunks = [_load_array(d, f"mean_{i}{tag}", m)
                                  for i, m in enumerate(self._mean_chunks)]
         self._seen = set(int(t) for t in manifest["seen"])
         return set(self._seen)
@@ -335,6 +435,12 @@ class StreamingHAADF:
 
     ``probe_chunk``: direct path — at most this many probes' exit waves
     live at once. None = all at once.
+
+    ``mesh``: with ``probes`` given, the direct path shards them over the
+    probe axis and, at a frame extent F > 1, the stream over frames (see
+    the module docstring). The S-matrix route shards its beams: over every
+    rank at F = 1, over the probe axis of each frame row at F > 1 (each row
+    builds its own frame's basis).
     """
 
     def __init__(self, spec: SimSpec, probes, probe_positions,
@@ -345,10 +451,14 @@ class StreamingHAADF:
                  aberrations=None, defocus: float = 0.0,
                  beam_chunk: int = 64, probe_chunk: Optional[int] = None,
                  synth_chunk: int = 128, device="cuda"):
-        _no_mesh(mesh)
         self.spec = spec
         if probes is None and not use_smatrix:
             raise ValueError("probes=None requires use_smatrix=True")
+        self.mesh = mesh
+        self._frame_extent = 1
+        n_all = probes.shape[0] if probes is not None else None
+        if mesh is not None and probes is not None:
+            probes, self._frame_extent = _mesh_probes(mesh, probes)
         self.probes = probes
         self.device = probes.device if probes is not None \
             else torch.device(device)
@@ -360,12 +470,11 @@ class StreamingHAADF:
         self._mask = torch.as_tensor(
             _haadf_mask(spec, collection_angle, eV),
             device=self.device).to(prec.real)
-        n_probes = (probes.shape[0] if probes is not None
-                    else len(self.probe_positions))
-        if probes is not None and probes.shape[0] != \
-                len(self.probe_positions):
+        n_probes = n_all if probes is not None \
+            else len(self.probe_positions)
+        if probes is not None and n_all != len(self.probe_positions):
             raise ValueError(
-                f"probes ({probes.shape[0]}) and probe_positions "
+                f"probes ({n_all}) and probe_positions "
                 f"({len(self.probe_positions)}) disagree")
         self._n = 0
         self._seen = set()      # frame indices, when callers give them
@@ -397,8 +506,12 @@ class StreamingHAADF:
                                    probe_chunk=synth_chunk)
             self._beam_chunk = beam_chunk
         self.use_smatrix = bool(use_smatrix)
-        self._acc = torch.zeros((n_probes,), dtype=prec.real,
+        n_acc = n_probes if self.use_smatrix or probes is None \
+            else probes.shape[0]
+        self._acc = torch.zeros((n_acc,), dtype=prec.real,
                                 device=self.device)
+        if probe_chunk is not None and mesh is not None:
+            raise ValueError("probe_chunk and mesh are mutually exclusive")
         self.probe_chunk = probe_chunk
 
     def _track(self, frame_indices) -> None:
@@ -439,13 +552,16 @@ class StreamingHAADF:
         """One frame through the S-matrix: the basis build, then the
         synthesis and detector reduction per probe chunk; no per-probe
         exit waves are kept."""
+        from ..parallel.mesh import PROBE_AXIS
         from .smatrix import _synth_chunks, compute_smatrix
         g = self.spec.grid
         sm = compute_smatrix(positions, self.spec.plan, self._beams,
                              xs=g.xs, ys=g.ys, dz=self.spec.dz,
                              precision=self.spec.precision,
                              beam_chunk=self._beam_chunk,
-                             kmax2=self.spec.kmax2)
+                             kmax2=self.spec.kmax2, mesh=self.mesh,
+                             axis=(PROBE_AXIS if self._frame_extent > 1
+                                   else None))
         kw = self._sm_kwargs
         vals = _synth_chunks(sm, self.probe_positions, self.spec.precision,
                              kw["probe_chunk"],
@@ -459,6 +575,7 @@ class StreamingHAADF:
         """Feed one frame. ``frame_index`` (optional) records which frames
         were folded in, for checkpoint/resume; without it, resume relies on
         the frame count alone."""
+        _frame_sharded_only(self._frame_extent)
         self._track(frame_index)
         self._fold_frame(_positions(positions, self.device))
         self._n += 1
@@ -467,19 +584,24 @@ class StreamingHAADF:
         """Feed (B, n_atoms, 3) frames, in order. The whole block is checked
         before any state changes, and it equals B calls of ``add_frame``
         bit for bit. ``frame_indices``: optional B indices for resume
-        bookkeeping."""
+        bookkeeping. Frame-sharded (mesh frame extent F > 1): exactly F
+        frames, the same block on every rank; each rank folds the frame
+        of its frame coordinate."""
         pos = _positions(positions_block, self.device)
+        B = pos.shape[0] if pos.dim() else 0
+        rows = range(B)
+        if self._frame_extent > 1:
+            rows = [_frame_row(self.mesh, self._frame_extent, pos, B)]
         if pos.dim() != 3:
             raise ValueError(
                 f"positions_block must be (B, n_atoms, 3), "
                 f"got {tuple(pos.shape)}")
-        B = pos.shape[0]
         if frame_indices is not None and len(frame_indices) != B:
             raise ValueError(
                 f"frame_indices has {len(frame_indices)} entries for "
                 f"a {B}-frame block")
         self._track(frame_indices)
-        for k in range(B):
+        for k in rows:
             self._fold_frame(pos[k])
         self._n += B
 
@@ -487,28 +609,31 @@ class StreamingHAADF:
 
     def checkpoint_key(self) -> str:
         """md5-12 over everything that must match for a restore (the JAX
-        package's key tuple without its mesh entries)."""
+        package's key tuple; the mesh shape enters only with a mesh)."""
         g = self.spec.grid
         sm_cfg = ((self._beams.f, self._beams.mrad, self._beams.n_beams,
                    repr(self._sm_kwargs)) if self.use_smatrix else None)
-        params = str((g.nx, g.ny, g.nz, self.spec.eV, self.spec.dz,
-                      self.spec.record_layers, self.layer_index,
-                      self.intensity,
-                      (_digest(self.probes) if self.probes is not None
-                       else "smatrix-only"),
-                      _digest(self._mask), _digest(self.probe_positions),
-                      sm_cfg))
-        return hashlib.md5(params.encode()).hexdigest()[:12]
+        key = (g.nx, g.ny, g.nz, self.spec.eV, self.spec.dz,
+               self.spec.record_layers, self.layer_index,
+               self.intensity,
+               (_digest(self.probes) if self.probes is not None
+                else "smatrix-only"),
+               _digest(self._mask), _digest(self.probe_positions),
+               sm_cfg)
+        if self.mesh is not None:
+            key += (_mesh_key(self.mesh), self._frame_extent)
+        return hashlib.md5(str(key).encode()).hexdigest()[:12]
 
     def save_checkpoint(self, directory) -> None:
         """The accumulator (acc.npy) and then the manifest (key, frame
         count, frames seen), each written to a temporary name and renamed."""
         d = Path(directory)
         d.mkdir(parents=True, exist_ok=True)
-        _save_array(d, "acc", self._acc)
+        tag = _rank_tag(self.mesh)
+        _save_array(d, "acc" + tag, self._acc)
         _write_manifest(d, {"key": self.checkpoint_key(),
                             "n": int(self._n),
-                            "seen": sorted(int(t) for t in self._seen)})
+                            "seen": sorted(int(t) for t in self._seen)}, tag)
 
     def restore(self, directory) -> set:
         """Load a checkpoint from an identically configured stream; returns
@@ -516,8 +641,9 @@ class StreamingHAADF:
         passed ``frame_index``: resume by count via ``n_streamed`` then).
         Raises ValueError on a mismatch."""
         d = Path(directory)
-        manifest = _read_manifest(d, self.checkpoint_key())
-        self._acc = _load_array(d, "acc", self._acc)
+        tag = _rank_tag(self.mesh)
+        manifest = _read_manifest(d, self.checkpoint_key(), tag)
+        self._acc = _load_array(d, "acc" + tag, self._acc)
         self._n = int(manifest["n"])
         self._seen = set(int(t) for t in manifest.get("seen", []))
         return set(self._seen)
@@ -533,6 +659,12 @@ class StreamingHAADF:
         if self._n == 0:
             raise ValueError("no frames streamed")
         from ..analysis.detectors import _scan_grid
-        collected = self._acc.cpu().numpy() / self._n
+        acc = self._acc
+        if self.mesh is not None:
+            acc = _merge_frames(acc, self.mesh, self._frame_extent)
+            if not self.use_smatrix:
+                from ..parallel.sharded import _replicate_over_probe
+                acc = _replicate_over_probe(acc, self.mesh)
+        collected = acc.cpu().numpy() / self._n
         xs, ys, nearest = _scan_grid(self.probe_positions)
         return collected[nearest].reshape(len(xs), len(ys))

@@ -170,10 +170,26 @@ def test_frame_cache_resume_and_probe_positions_key(tmp_path):
 
 
 def test_unported_options_raise():
+    """mesh= is taken: setup checks the frame and probe counts against the
+    mesh's extents (the JAX package's messages) before anything runs."""
+    class Mesh:
+        mesh_dim_names = ("frame", "probe")
+
+        def __init__(self, f, p):
+            self.shape = (f, p)
+
+        def size(self, dim=None):
+            return self.shape[dim]
+
     ttraj, _ = _traj()
     calc = tt.MultisliceCalculator(device="cpu")
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        calc.setup(ttraj, mesh=object())
+    with pytest.raises(ValueError, match="n_frames=4 must be divisible by "
+                       "the mesh frame extent 3"):
+        calc.setup(ttraj, mesh=Mesh(3, 1))
+    with pytest.raises(ValueError, match="n_probes=4 must be divisible by "
+                       "the mesh probe extent 3"):
+        calc.setup(ttraj, mesh=Mesh(1, 3),
+                   probe_positions=[(1.0, 1.0)] * 4)
 
 
 def test_wfdata_save_load_roundtrip(tmp_path):

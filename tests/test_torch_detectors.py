@@ -149,14 +149,28 @@ class TestVirtualImaging:
             np.testing.assert_array_equal(a, b)
 
     def test_sharded_wfdata_raises(self, wfs):
-        class DTensor:
-            shape = (1,)
-
-        wf = tt.WFData(probe_positions=np.zeros((1, 2)), time=np.zeros(1),
-                       kxs=np.zeros(1), kys=np.zeros(1), layer=np.zeros(1),
-                       wavefunction_data=DTensor(), probe=None)
-        with pytest.raises(NotImplementedError, match="Multi-GPU"):
-            td.pacbed(wf)
+        """A sharded WFData (a DTensor) is taken: on a mesh of one rank
+        every detector reads its local tensor, the unsharded result bit for
+        bit (tests/test_torch_sharded.py holds real meshes)."""
+        import dataclasses
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor, Shard
+        from pyslice_tpu_torch.parallel.mesh import make_mesh
+        wf0 = wfs[1]["tensor"]
+        mesh = make_mesh(device="cpu")
+        try:
+            wf = dataclasses.replace(wf0, wavefunction_data=DTensor.from_local(
+                wf0.wavefunction_data, mesh, [Shard(1), Shard(0)],
+                run_check=False))
+            lam = wf0.probe.wavelength
+            ring = td.annular_mask(wf0.kxs, wf0.kys, lam, 10.0, 40.0)
+            np.testing.assert_array_equal(td.pacbed(wf), td.pacbed(wf0))
+            np.testing.assert_array_equal(td.center_of_mass(wf),
+                                          td.center_of_mass(wf0))
+            np.testing.assert_array_equal(td.virtual_image(wf, ring),
+                                          td.virtual_image(wf0, ring))
+        finally:
+            dist.destroy_process_group()
 
 
 def test_apply_shot_noise():

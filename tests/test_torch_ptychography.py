@@ -158,9 +158,15 @@ def test_helpers_equal_jax(problem):
 def test_msp_argument_errors(problem):
     p = problem
     tprobe = TProbe(p["xs"], p["ys"], MRAD, EV, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+
+    class Mesh:
+        def size(self):
+            return 4
+
+    with pytest.raises(ValueError, match="minibatch size 6 must divide by "
+                       "the mesh's 4 devices"):
         tptycho.msp_reconstruct(p["inten"], p["scan"], tprobe, NZ, DZ,
-                                mesh=object())
+                                batch=6, mesh=Mesh())
     with pytest.raises(ValueError, match="patterns"):
         tptycho.msp_reconstruct(p["inten"][:3], p["scan"], tprobe, NZ, DZ)
     with pytest.raises(ValueError, match="loss"):
@@ -347,15 +353,26 @@ def test_scan_grid_data_roundtrip(weak):
 
 
 def test_scan_grid_data_sharded_raises(weak):
-    class DTensor:
-        pass
-
-    wf = WFData(probe_positions=weak["positions"], time=np.array([0.0]),
-                kxs=weak["kxs_shift"], kys=weak["kxs_shift"],
-                layer=np.array([0]), wavefunction_data=DTensor(),
-                probe=weak["base"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tptycho.scan_grid_data(wf)
+    """A sharded WFData (a DTensor) is taken: on a mesh of one rank it
+    reads the local tensor, the unsharded stack bit for bit
+    (tests/test_torch_sharded.py holds real meshes)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+    from pyslice_tpu_torch.parallel.mesh import make_mesh
+    waves = torch.from_numpy(np.sqrt(weak["inten"])[:, None, :, :, None])
+    kw = dict(probe_positions=weak["positions"], time=np.array([0.0]),
+              kxs=weak["kxs_shift"], kys=weak["kxs_shift"],
+              layer=np.array([0]), probe=weak["base"])
+    mesh = make_mesh(device="cpu")
+    try:
+        wf = WFData(wavefunction_data=DTensor.from_local(
+            waves, mesh, [Shard(1), Shard(0)], run_check=False), **kw)
+        got = tptycho.scan_grid_data(wf)
+    finally:
+        dist.destroy_process_group()
+    want = tptycho.scan_grid_data(WFData(wavefunction_data=waves, **kw))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_ssb_recovers_weak_phase(weak):

@@ -285,11 +285,31 @@ def test_smatrix_auto_crossover(problem, monkeypatch):
 
 
 def test_compute_smatrix_mesh_raises(problem):
+    """mesh= is taken: on a mesh of one rank the beam-sharded build and its
+    all_reduce'd synthesis are the unsharded ones bit for bit
+    (tests/test_torch_sharded.py holds real meshes); an oblique cell still
+    raises."""
+    import torch.distributed as dist
+    from pyslice_tpu_torch.parallel.mesh import make_mesh
     beams = ts.build_beams(problem["xs"], problem["ys"], 22.0, 100e3)
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        ts.compute_smatrix(problem["pos"], problem["plan"], beams,
-                           xs=problem["xs"], ys=problem["ys"],
-                           dz=problem["dz"], mesh=object(), device="cpu")
+    kw = dict(xs=problem["xs"], ys=problem["ys"], dz=problem["dz"],
+              device="cpu", beam_chunk=16)
+    want = ts.compute_smatrix(problem["pos"], problem["plan"], beams, **kw)
+    mesh = make_mesh(device="cpu")
+    try:
+        got = ts.compute_smatrix(problem["pos"], problem["plan"], beams,
+                                 mesh=mesh, **kw)
+        assert got.beam_range == (0, beams.n_beams)
+        assert torch.equal(got.s, want.s)
+        w = np.ones((len(problem["xs"]), len(problem["ys"])))
+        np.testing.assert_array_equal(
+            ts.smatrix_reduce(got, problem["scan"], w),
+            ts.smatrix_reduce(want, problem["scan"], w))
+        with pytest.raises(ValueError, match="oblique"):
+            ts.compute_smatrix(problem["pos"], problem["plan"], beams,
+                               mesh=mesh, ksq=np.ones((2, 2)), **kw)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_smatrix_virtual_image_matches_detectors(problem):

@@ -4,7 +4,7 @@ pyslice_tpu's on the same hBN thermal frames (float64 to 1e-10, one
 complex64 case per engine to the 1e-6 residual), the single-device tests
 of tests/test_streaming.py mirrored on the port, and the port's own pins:
 block feeding and resume bit-identical, one rasterization a frame, mesh=
-raising."""
+checked against the mesh's extents."""
 
 import json
 
@@ -467,11 +467,41 @@ def test_phase_factors_rounded_once():
 
 
 def test_mesh_raises(pair):
+    """mesh= is taken, with the JAX package's errors for what does not
+    divide or combine (tests/test_torch_sharded.py streams on real
+    meshes)."""
+    class Mesh:
+        mesh_dim_names = ("frame", "probe")
+
+        def __init__(self, f, p):
+            self.shape = (f, p)
+
+        def size(self, dim=None):
+            return self.shape[dim]
+
+        def get_local_rank(self, axis):
+            return 0
+
     _, tp = pair.probes(25, [(1.0, 1.0)])
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        tt.StreamingTACAW(pair.tspec, tp, 6, 0.005, mesh=object())
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        tt.StreamingHAADF(pair.tspec, tp, [(1.0, 1.0)], mesh=object())
+    with pytest.raises(ValueError, match="n_probes=1 must be divisible by "
+                       "the mesh probe extent 2"):
+        tt.StreamingTACAW(pair.tspec, tp, 6, 0.005, mesh=Mesh(1, 2))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tt.StreamingTACAW(pair.tspec, tp, 6, 0.005, probe_chunk=1,
+                          mesh=Mesh(1, 1))
+    with pytest.raises(ValueError, match="n_frames=6 must be divisible by "
+                       "the mesh frame extent 4"):
+        tt.StreamingTACAW(pair.tspec, tp, 6, 0.005, mesh=Mesh(4, 1))
+    with pytest.raises(ValueError, match="n_probes=1 must be divisible"):
+        tt.StreamingHAADF(pair.tspec, tp, [(1.0, 1.0)], mesh=Mesh(1, 2))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tt.StreamingHAADF(pair.tspec, tp, [(1.0, 1.0)], probe_chunk=1,
+                          mesh=Mesh(1, 1))
+    st = tt.StreamingTACAW(pair.tspec, tp, 6, 0.005, mesh=Mesh(2, 1))
+    with pytest.raises(ValueError, match="frame-sharded"):
+        st.add_frame(0, pair.positions[0])
+    with pytest.raises(ValueError, match="exactly 2 frames"):
+        st.add_frame_block([0, 1, 2], pair.positions[:3])
 
 
 def test_complex64_streams_match_jax():

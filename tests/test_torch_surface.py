@@ -220,14 +220,17 @@ MEASURED_MODULES = ["pyslice_tpu_torch.__main__",
                     "pyslice_tpu_torch.io.data4d",
                     "pyslice_tpu_torch.analysis.calibration",
                     "pyslice_tpu_torch.utils.profiling"]
+PARALLEL_MODULES = ["pyslice_tpu_torch.parallel.mesh",
+                    "pyslice_tpu_torch.parallel.sharded",
+                    "pyslice_tpu_torch.parallel.dryrun"]
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (the imaging toolkit's, and the measured-
-    data and command-line modules, ``__main__`` included, by name), and
-    chip_smoke.py, imports with jax and pyslice_tpu blocked, and the
-    package root exports the imaging toolkit's and the measured-data
-    names."""
+    """Every module of the port (the imaging toolkit's, the measured-data
+    and command-line modules, ``__main__`` included, and the multi-GPU
+    modules parallel.{mesh,sharded,dryrun}, by name), and chip_smoke.py,
+    imports with jax and pyslice_tpu blocked, and the package root exports
+    the imaging toolkit's and the measured-data names."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -236,7 +239,8 @@ def test_port_imports_no_jax():
         import pyslice_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             pyslice_tpu_torch.__path__, "pyslice_tpu_torch.")]
-        missing = set({IMAGING_MODULES + MEASURED_MODULES!r}) - set(names)
+        missing = set({IMAGING_MODULES + MEASURED_MODULES
+                       + PARALLEL_MODULES!r}) - set(names)
         assert not missing, missing
         for name in names:
             importlib.import_module(name)
