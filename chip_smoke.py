@@ -145,9 +145,31 @@ Phases, each printing one line (or a few) and failing hard:
    a rank. Each part's launches, summed over the ranks (the counters are
    per process), checked and added to the kernels line; the all_to_all's
    seconds, ms a frame sharded against single-process (ranks that share
-   one card over Gloo: not a scaling figure). ``python3
-   chip_smoke.py --phase 22`` runs phases 1, 2 and 22 alone;
-23. a JSON line per kernel, the nvidia-smi line, and the final JSON line.
+   one card over Gloo: not a scaling figure). Each rank keeps its whole
+   standard error; a failed rank's last 100 lines are printed and fail
+   the phase. ``python3 chip_smoke.py --phase 22`` runs phases 1, 2 and
+   22 alone;
+23. the examples (``pyslice_tpu_torch/examples``), each run in process as
+   ``python -m pyslice_tpu_torch.examples.<name> ... --device cuda`` from
+   a scratch directory, the launch counts reset before and read after
+   each run, its wall seconds and its launches printed and added to the
+   kernels line: every demo at its own arguments (make_fixture and
+   make_notebook write files; the others at grids of 16 to 87 a side,
+   below the kernels' smallest axis, must launch none), tacaw_demo also
+   at the quick start's width (phase 6's dump at --sampling 0.1 --frames
+   100: 1023^2, K6 mixed 100 times, and its 100-probe HAADF), si_dumbbells
+   at --min-size 20 --sampling 0.085 --scan 8 (256 x 272, K6),
+   inverse_potential at --nx 256 (K6, K7), verify_e2e (its kernel-path
+   check at 256^2 and its adjoint at 128^2), each of those launching at
+   least one kernel and run a second time under the plain dispatch, each
+   in a directory of its own, and held against it: tacaw_demo's saved
+   spectrum, diffraction, spectral diffraction, dispersion and HAADF
+   image, si_dumbbells' ADF image, the gradient of inverse_potential's
+   first Adam step and of verify_e2e's adjoint check (max|d|/max|ref| <=
+   1e-3), and the numbers of their physics lines (relative 1e-3); each
+   prints its expected lines (verify_e2e ``ALL OK``). ``python3
+   chip_smoke.py --phase 23`` runs phases 1, 2 and 23 alone;
+24. a JSON line per kernel, the nvidia-smi line, and the final JSON line.
 
 Each kernel's record carries its bound: the least time an H100 could take
 for the launch timed, the larger of the bytes it must move (each input
@@ -161,8 +183,10 @@ Exits non-zero, printing no result, without a CUDA device or without the
 repository around it.
 """
 
+import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -1534,10 +1558,7 @@ def kernel_vs_plain(name, fn, want, unit, n_units, rounds=1):
 
 def check_np(name, got, want):
     """check() on two host arrays."""
-    import numpy as np
-    import torch
-    return check(name, torch.as_tensor(np.asarray(got)),
-                 torch.as_tensor(np.asarray(want)))
+    return check(name, torch_of(got), torch_of(want))
 
 
 def add_counts(total, counts):
@@ -2658,6 +2679,304 @@ def multigpu_phase(dev, card, tmp, stem_lx=102.35, stream_lx=STREAM_LX,
     return total
 
 
+# Phase 23: the examples of pyslice_tpu_torch/examples, each run in process
+# as ``python -m pyslice_tpu_torch.examples.<name> <argv> --device cuda``
+# from a scratch directory of its own. (name, argv, expected output
+# fragments, the launches it must make). "plain": the run's grids lie below
+# the kernels' smallest axis (128; a power of two for A/B/C, K7; radices
+# <= 31 for K4, K5, K6 mixed, K8), the JAX package's rule too, so the demo
+# at its own size runs the plain torch.fft loop and must launch no kernel;
+# "kernels": at least one kernel launch; a dict: those kernels launched
+# exactly that often, others as they fall. "files": writes files, no device
+# work.
+EX_DUMP = "hbn_1023.lammpstrj"       # phase 6's box, written anew here
+EX_DUMP_LX = 102.25
+EXAMPLE_RUNS = [
+    ("make_fixture", [], ["wrote monolayer.lammpstrj: 100 frames"],
+     "files"),
+    ("make_notebook", [], ["cells"], "files"),
+    ("tacaw_demo", [], ["grid 67x87x14", "image (10, 10)"], "plain"),
+    ("tacaw_demo", [EX_DUMP, "--sampling", "0.1", "--frames",
+                    str(QUICK_FRAMES)],
+     ["grid 1023x1023x14", "HAADF: ", "image (10, 10)"],
+     {"k6": QUICK_FRAMES}),
+    ("si_dumbbells", [], ["dumbbell split 1.358", "si_dumbbells OK"],
+     "plain"),
+    ("si_dumbbells", ["--min-size", "20", "--sampling", "0.085", "--scan",
+                      "8"], ["dumbbell split 1.358", "si_dumbbells OK"],
+     "kernels"),
+    ("realistic_stem", [], ["contrast ideal"], "plain"),
+    ("diffraction_toolkit", [], ["PED", "radial profile"], "plain"),
+    ("ptychography_demo", [], ["SSB", "iCoM", "ePIE", "MSP"], "plain"),
+    ("inverse_potential", [], ["correlation(recovered, true)"], "plain"),
+    ("inverse_potential", ["--nx", "256", "--steps", "50"],
+     ["correlation(recovered, true)"], "kernels"),
+    ("calibration_demo", [], ["aberrations", "tilt series"], "plain"),
+    ("experimental_calibration", [], ["calibration report", "solved"],
+     "plain"),
+    ("walkthrough", [], ["HAADF image", "unitarity", "done."], "plain"),
+    ("verify_e2e", [], ["kernel path == plain path", "ALL OK"], "kernels"),
+]
+# A run that reaches the kernels runs a second time under dispatch("off")
+# and is held against the kernel run (only the kernel run's launches
+# count): every .npy both save, to MAX_REL and MAX_RESIDUAL or the bars of
+# EX_ARRAY_BARS; what the calls named in EX_RECORD hand the example at
+# their first call, as (owner, attribute, what to keep of (args, result),
+# "array" for MAX_REL and MAX_RESIDUAL or "grad" for GRAD_REL); and the
+# numbers of the printed lines that match EX_LINES, to relative 1e-3 plus
+# half a unit of the last printed digit (timings dropped).
+EX_RECORD = {
+    "si_dumbbells": [("HAADFData", "calculateADF", lambda a, out: [out],
+                      "array")],
+    # the gradient of Adam's first step, taken at V = 0 in both runs (the
+    # later iterates part: where the gradient is roundoff, Adam's step is
+    # still +-lr)
+    "inverse_potential": [("Adam", "step", lambda a, out: [
+        p.grad for g in a[0].param_groups for p in g["params"]], "grad")],
+    # dL/dV of its adjoint check (the second grad, d|psi|^2/dV, is
+    # roundoff of 0 and held by the example itself)
+    "verify_e2e": [("autograd", "grad", lambda a, out: [out[0]], "grad")],
+}
+EX_LINES = {
+    "si_dumbbells": r"ADF range",
+    # the first step and the recovery; the last loss moves by a few 1e-3
+    # when the gradients carry roundoff of 1e-6 of their largest element
+    "inverse_potential": r"step +0 |^correlation",
+}
+# (max|d|/max|ref| bar, residual bar; None: not held) of a saved array,
+# where not MAX_REL and MAX_RESIDUAL
+TACAW_BARS = (None, MAX_RESIDUAL)
+EX_ARRAY_BARS = {
+    # the mean-free TACAW intensities, small differences of large waves:
+    # float32 roundoff of the mean at the central beam sets their max|d|
+    # (phase 12's float32 stream lies ~4e-4 of max|ref| from complex128
+    # there), so each map is held by its residual
+    "diffraction.npy": TACAW_BARS,
+    "spectrum.npy": TACAW_BARS,
+    "spectral_diff.npy": TACAW_BARS,
+    # the same signal sampled along a path mostly outside the band, where
+    # it is complex64 roundoff of the subtracted time mean
+    "dispersion.npy": (None, 1e-4),
+}
+EX_TIME = re.compile(r"(?<![\w.])\d+(?:\.\d+)?\s?s(?![A-Za-z(])")
+EX_NUM = re.compile(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?")
+
+
+class recorded:
+    """Host copies of what ``owner.attr`` hands back during the block: the
+    list ``take(args, result)`` of its first call (``got``, empty if it
+    was not called); ``owner`` names a class or module of owners()."""
+
+    def __init__(self, owner, attr, take, kind):
+        self.owner, self.attr, self.take = owner, attr, take
+        self.kind, self.got = kind, []
+
+    def __enter__(self):
+        owner = owners()[self.owner]
+        orig = getattr(owner, self.attr)
+
+        def wrapped(*a, **k):
+            out = orig(*a, **k)
+            if not self.got:
+                self.got.append([host_array(x) for x in self.take(a, out)])
+            return out
+        setattr(owner, self.attr, wrapped)
+        self.restore = lambda: setattr(owner, self.attr, orig)
+        return self
+
+    def __exit__(self, *exc):
+        self.restore()
+
+
+def owners():
+    import torch
+    from pyslice_tpu_torch.analysis.haadf import HAADFData
+    return {"HAADFData": HAADFData, "Adam": torch.optim.Adam,
+            "autograd": torch.autograd}
+
+
+def host_array(x):
+    import numpy as np
+    import torch
+    return (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x))
+
+
+def run_example(name, argv):
+    """``python -m pyslice_tpu_torch.examples.<name>`` in process with
+    ``argv``: its standard output, launch counts and wall seconds. A run
+    that raises prints its output's last 60 lines first."""
+    import contextlib
+    import io
+    import runpy
+    out = io.StringIO()
+
+    def run():
+        saved = sys.argv
+        sys.argv = [name] + argv
+        try:
+            with contextlib.redirect_stdout(out):
+                runpy.run_module(f"pyslice_tpu_torch.examples.{name}",
+                                 run_name="__main__", alter_sys=True)
+        except BaseException:
+            print(f"  {name} {' '.join(argv)} raised; its output ended:")
+            for line in out.getvalue().splitlines()[-60:]:
+                print(f"    | {line}")
+            raise
+        finally:
+            sys.argv = saved
+
+    _, counts, seconds = launches_of(run)
+    return out.getvalue(), counts, seconds
+
+
+def held_lines(out, pattern):
+    """The lines of ``out`` that match ``pattern``, timings taken out."""
+    return [EX_TIME.sub("<t>", ln) for ln in out.splitlines()
+            if re.search(pattern, ln)]
+
+
+def half_unit(text):
+    """Half a unit of the last printed digit of a number's text."""
+    mant, _, exp = text.lower().partition("e")
+    dec = len(mant.split(".")[1]) if "." in mant else 0
+    return 0.5 * 10.0 ** (int(exp or 0) - dec)
+
+
+def hold_example(name, kern, plain):
+    """An example's kernel run against its plain run, each given as (its
+    output, its records, its directory): the arrays both save, what
+    EX_RECORD kept, the numbers of EX_LINES' lines. Prints every
+    comparison; returns the labels of those beyond their bars."""
+    import pathlib
+    import numpy as np
+    out_k, rec_k, dir_k = kern
+    out_p, rec_p, dir_p = plain
+    held, bad = 0, []
+
+    def hold(label, x, y, max_rel, max_res):
+        nonlocal held
+        d, rel, res = errors(torch_of(x), torch_of(y))
+        bars = (f"<= {max_rel:g}" if max_rel is not None else "-",
+                f"<= {max_res:g}" if max_res is not None else "-")
+        print(f"  {label}, kernels vs plain: max|d| {d:.3e}  max|d|/max|ref| "
+              f"{rel:.3e} ({bars[0]})  residual {res:.3e} ({bars[1]})")
+        if ((max_rel is not None and rel > max_rel)
+                or (max_res is not None and res > max_res)):
+            bad.append(label)
+        held += 1
+
+    for f in sorted(pathlib.Path(dir_k).rglob("*.npy")):
+        g = pathlib.Path(dir_p) / f.relative_to(dir_k)
+        require(g.exists(), f"{name}: the plain run wrote no {g.name}")
+        a, b = np.load(f), np.load(g)
+        require(a.shape == b.shape, f"{name} {f.name}: shapes differ")
+        hold(f"{name} {f.name}", a, b,
+             *EX_ARRAY_BARS.get(f.name, (MAX_REL, MAX_RESIDUAL)))
+    for (_, attr, _, kind), got_k, got_p in zip(EX_RECORD.get(name, []),
+                                                   rec_k, rec_p):
+        require(got_k and len(got_k) == len(got_p),
+                f"{name}: {attr} recorded {len(got_k)} and {len(got_p)}")
+        for i, (call_k, call_p) in enumerate(zip(got_k, got_p)):
+            for j, (x, y) in enumerate(zip(call_k, call_p)):
+                hold(f"{name} {attr} call {i} [{j}]", x, y,
+                     *((GRAD_REL, None) if kind == "grad"
+                       else (MAX_REL, MAX_RESIDUAL)))
+    if name in EX_LINES:
+        lk, lp = (held_lines(o, EX_LINES[name]) for o in (out_k, out_p))
+        require(lk and len(lk) == len(lp), f"{name}: printed lines differ")
+        for a, b in zip(lk, lp):
+            na, nb = EX_NUM.findall(a), EX_NUM.findall(b)
+            ok = EX_NUM.sub("#", a) == EX_NUM.sub("#", b) and all(
+                abs(float(x) - float(y)) <= 1e-3 * max(abs(float(x)),
+                                                      abs(float(y)))
+                + max(half_unit(x), half_unit(y)) for x, y in zip(na, nb))
+            print(f"  {name} printed, kernels: {a.strip()[:90]}")
+            print(f"  {name} printed, plain:   {b.strip()[:90]}")
+            if not ok:
+                bad.append(f"printed {a.strip()[:40]!r} (rel 1e-3)")
+            held += 1
+    require(held, f"{name}: nothing held against the plain run")
+    return bad
+
+
+def torch_of(x):
+    import numpy as np
+    import torch
+    return torch.as_tensor(np.asarray(x))
+
+
+def examples_phase(dev, card, tmp):
+    """Phase 23: every run of EXAMPLE_RUNS on ``dev``, each from a
+    directory of its own under ``tmp`` with its launch counts reset before
+    and read after; fails a run whose fragments are missing or whose
+    launches are not what it must make, and, at its end, the kernel runs
+    that disagree with their plain runs (hold_example). Returns the kernel runs' launch
+    counts, K6 under its engine's key."""
+    import os
+    import numpy as np
+    import torch
+    from pyslice_tpu_torch.io.lammps import write_lammps_dump
+
+    t_phase = time.perf_counter()
+    src = hbn_box(EX_DUMP_LX, QUICK_FRAMES)
+    dump = os.path.join(tmp, EX_DUMP)
+    write_lammps_dump(dump, np.where(src.atom_types == 5, 1, 2),
+                      src.positions, src.velocities, src.box_matrix)
+    total, bad = {}, []
+    here = os.getcwd()
+    try:
+        for i, (name, argv, expect, want) in enumerate(EXAMPLE_RUNS):
+            full = [dump if a == EX_DUMP else a for a in argv] + (
+                [] if want == "files" else ["--device", dev.type])
+            shown = " ".join(EX_DUMP if a == dump else a for a in full)
+            ways = [("kernels", "auto")]
+            if want not in ("files", "plain"):
+                ways.append(("plain", "off"))
+            runs = {}
+            for way, flag in ways:
+                wd = os.path.join(tmp, f"{i:02d}-{name}-{way}")
+                os.makedirs(wd)
+                os.chdir(wd)
+                recs = [recorded(*r) for r in EX_RECORD.get(name, [])]
+                with dispatch(flag), contextlib.ExitStack() as stack:
+                    for r in recs:
+                        stack.enter_context(r)
+                    out, counts, seconds = run_example(name, full)
+                runs[way] = (out, [r.got for r in recs], wd)
+                if way == "plain":
+                    print(f"  {name} {shown}, plain (dispatch off): "
+                          f"{seconds:.2f} s")
+                    continue
+                launched = {k: v for k, v in counts.items() if v}
+                print(f"  {name} {shown}: {seconds:.2f} s, launches "
+                      f"{launched}; card {card}")
+                for line in out.splitlines()[-8:]:
+                    print(f"    | {line[:150]}")
+                for frag in expect:
+                    require(frag in out, f"{name}: {frag!r} not printed")
+                if want in ("files", "plain"):
+                    require(not launched, f"{name}: launched {launched}, "
+                            f"expected none ({want})")
+                elif want == "kernels":
+                    require(launched, f"{name} launched no kernel")
+                else:
+                    require(all(counts[k] == v for k, v in want.items())
+                            and launched, f"{name}: launches {launched}, "
+                            f"expected {want} and more")
+                add_counts(total, counts)    # K6 under its engine's key
+            if "plain" in runs:
+                bad += hold_example(name, runs["kernels"], runs["plain"])
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        os.chdir(here)
+    print(f"  phase 23: {time.perf_counter() - t_phase:.1f} s; card {card}")
+    require(not bad, "kernel runs beyond their bars against the plain runs: "
+            + "; ".join(bad))
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2684,6 +3003,13 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             print("[22] multi-GPU alone:")
             print(multigpu_phase(dev, card, tmp))
+        print(card)
+        return 0
+    if sys.argv[1:] == ["--phase", "23"]:
+        # phase 23 alone (the examples): no kernels line, no result line
+        with tempfile.TemporaryDirectory() as tmp:
+            print("[23] the examples alone:")
+            print(examples_phase(dev, card, tmp))
         print(card)
         return 0
 
@@ -2755,6 +3081,10 @@ def main():
               "(22a one NCCL rank; 22b, 22c four ranks, on Gloo sharing the "
               "card where there is one):")
         imaging.append(multigpu_phase(dev, card, tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        print("[23] the examples of pyslice_tpu_torch/examples on the card "
+              "(tacaw_demo also at 1023^2 x 100 frames):")
+        imaging.append(examples_phase(dev, card, tmp))
     counts.update(k4=odd["k4"] + thermal["k4"], k5=odd["k5"] + thermal["k5"],
                   k6_mixed=k6_mixed + thermal["k6"],
                   k6_pow2=k6_pow2 + k6_sm, k7=k7, k8=k8)

@@ -11,9 +11,10 @@ Counterpart of ``pyslice_tpu/analysis/haadf.py`` (reference
 Quirk 11, kept as the default: the signal sums the *amplitude* |psi_hat|,
 not the intensity; ``intensity=True`` gives the |psi_hat|^2 detector.
 Device-resident WFData reduce on their device; only the (n_probes,)
-signal crosses to the host. A WFData sharded over a (frame, probe) mesh
-reduces through ``parallel.sharded.collected_sharded`` (an all_reduce over
-frames, an all-gather over probes; every rank of the mesh calls it).
+signal crosses to the host (``preview=True`` also reads back the first
+scan point's frame-mean |psi_hat|). A WFData sharded over a (frame, probe)
+mesh reduces through ``parallel.sharded.collected_sharded`` (an all_reduce
+over frames, an all-gather over probes; every rank of the mesh calls it).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from ..parallel import sharded
+from ..utils.plotting import pyplot
 from .wf_data import WFData
 
 
@@ -40,8 +42,6 @@ class HAADFData:
                      preview: bool = False, intensity: bool = False) -> np.ndarray:
         """Annular dark-field image over the reconstructed scan grid.
         Returns (n_x, n_y); also stored as self.adf."""
-        if preview:
-            raise NotImplementedError("preview plots are not ported")
         positions = self.probe_positions
         self.xs = np.array(sorted(set(positions[:, 0].tolist())))
         self.ys = np.array(sorted(set(positions[:, 1].tolist())))
@@ -77,9 +77,29 @@ class HAADFData:
             collected = (exits * m).sum(dim=(2, 3)).mean(dim=1) \
                 .cpu().numpy()
         self.adf = collected[nearest].reshape(len(self.xs), len(self.ys))
+
+        if preview:
+            if mesh is not None:
+                raise ValueError("preview draws one probe's exit wave; a "
+                                 "mesh-sharded WFData has no single copy")
+            plt = pyplot("calculateADF(preview=True)")
+            # the frame mean of the first scan point's |psi| on the wave's
+            # device, read back once
+            amp = wf[nearest[0], :, :, :, -1].abs().mean(dim=0).cpu().numpy()
+            fig, ax = plt.subplots()
+            ax.imshow(amp ** 0.1 * (1 - mask), cmap="inferno")
+            plt.show()
         return self.adf
 
     def ADF(self, collection_angle: float = 45, preview: bool = False,
             intensity: bool = False) -> np.ndarray:
         """Alias: the reference demo calls ``.ADF`` (bug #1)."""
         return self.calculateADF(collection_angle, preview, intensity)
+
+    def plot(self):
+        """Draw the last ``calculateADF`` image over the scan extent."""
+        plt = pyplot("HAADFData.plot")
+        fig, ax = plt.subplots()
+        extent = (self.xs.min(), self.xs.max(), self.ys.min(), self.ys.max())
+        ax.imshow(self.adf.T, cmap="inferno", extent=extent)
+        plt.show()

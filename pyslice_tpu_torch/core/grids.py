@@ -115,6 +115,15 @@ class Grid:
         return abs(float(np.linalg.det(np.asarray(self.cell2d)))) / (
             self.nx * self.ny)
 
+    def sample_points_2d(self) -> np.ndarray:
+        """(nx, ny, 2) Cartesian in-plane sample positions, float64."""
+        fi = np.arange(self.nx) / self.nx
+        fj = np.arange(self.ny) / self.ny
+        A = (np.asarray(self.cell2d, dtype=np.float64)
+             if self.cell2d is not None else np.diag([self.lx, self.ly]))
+        return (fi[:, None, None] * A[:, 0][None, None, :]
+                + fj[None, :, None] * A[:, 1][None, None, :])
+
 
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m

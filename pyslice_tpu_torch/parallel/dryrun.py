@@ -25,7 +25,8 @@ Each rank writes its outputs (replicated results in full, sharded ones as
 its local block) to ``DIR/rank<r>.npz`` and its kernel launch counts,
 seconds (``seconds``: the timed calls; ``wall``: the start-up, each part
 whole and the save), collective statistics and, on the card, its peak
-device memory to ``DIR/rank<r>.json``. ``launch``
+device memory to ``DIR/rank<r>.json``, and its whole standard error to
+``DIR/rank<r>.stderr``. ``launch``
 starts the ranks from a parent process with a time limit of its own;
 ``load`` reads what they wrote. On the card the parent builds the kernels
 first (``ops.fused_step.build``): the ranks load the build and never run
@@ -424,6 +425,38 @@ def _check_built() -> None:
     fs.build()
 
 
+def keep_stderr(out: Path, rank: int) -> None:
+    """Send this process's standard error, whole, to ``out/rank<r>.stderr``
+    (a traceback, warnings, and a fatal signal's stack through
+    faulthandler), where ``launch`` reads it when the rank fails."""
+    import faulthandler
+    out.mkdir(parents=True, exist_ok=True)
+    fd = os.open(out / f"rank{rank}.stderr",
+                 os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    sys.stderr.flush()
+    os.dup2(fd, 2)
+    os.close(fd)
+    faulthandler.enable(sys.stderr)
+
+
+def failed_ranks(out: Path, nproc: int, tail: int = 100) -> str:
+    """The last ``tail`` lines of the standard error of every rank that
+    failed (it wrote no record, or its log holds a traceback), the first
+    to fail first (by the log's modification time)."""
+    logs = []
+    for r in range(nproc):
+        log = out / f"rank{r}.stderr"
+        text = log.read_text(errors="replace") if log.exists() else ""
+        if not (out / f"rank{r}.json").exists() or "Traceback" in text \
+                or "Fatal Python error" in text:
+            when = log.stat().st_mtime if log.exists() else float("inf")
+            logs.append((when, r, text.splitlines()[-tail:]))
+    return "\n".join(
+        f"--- rank {r}'s standard error, last {len(lines)} lines "
+        f"({out / f'rank{r}.stderr'}) ---\n" + "\n".join(lines)
+        for _, r, lines in sorted(logs))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="pyslice_tpu_torch.parallel.dryrun", description=__doc__,
@@ -434,11 +467,12 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", help="FxP (default: make_mesh's)")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
+    out = Path(args.out)
+    keep_stderr(out, int(os.environ.get("RANK", "0")))
 
     import torch
     import torch.distributed as dist
     from .mesh import make_mesh
-    out = Path(args.out)
     cfg_path = out / "config.json"
     cfg = json.loads(cfg_path.read_text()) if cfg_path.exists() else {}
     if args.device == "cpu":
@@ -483,8 +517,10 @@ def launch(out, nproc: int, *, device: str = "cpu", backend=None, mesh=None,
     a free port) and return ``load(out, nproc)``. ``config`` is written to
     ``out/config.json``. The ranks run in a process group of their own;
     past ``timeout`` seconds the whole group is killed and TimeoutError
-    raised, and a rank that fails raises RuntimeError with the output. On
-    the card the kernels are built here first."""
+    raised. Each rank keeps its whole standard error in
+    ``out/rank<r>.stderr``; a rank that fails raises RuntimeError with the
+    last 100 lines of each failed rank's. On the card the kernels are
+    built here first."""
     out = Path(out)
     out.mkdir(parents=True, exist_ok=True)
     if config is not None:
@@ -513,15 +549,15 @@ def launch(out, nproc: int, *, device: str = "cpu", backend=None, mesh=None,
         os.killpg(proc.pid, signal.SIGKILL)
         log, _ = proc.communicate()
         raise TimeoutError(f"dryrun ranks ran past {timeout} s:\n"
+                           f"{failed_ranks(out, nproc, tail=30)}\n"
                            f"{log[-6000:]}")
     if proc.returncode != 0:
-        # the ranks' own exceptions first: the launcher's summary that
-        # ends the log does not hold them
-        errors = "\n".join(line for line in log.splitlines()
-                           if line.startswith("[rank")
-                           and ("Error" in line or "error" in line))
+        # the failed ranks' own standard error first: the launcher's
+        # summary that ends its log does not hold their exceptions
         raise RuntimeError(f"dryrun ranks failed (exit {proc.returncode}):"
-                           f"\n{errors[-6000:]}\n...\n{log[-4000:]}")
+                           f"\n{failed_ranks(out, nproc)}\n--- the "
+                           f"launcher's output, last 4000 bytes ---\n"
+                           f"{log[-4000:]}")
     return load(out, nproc)
 
 

@@ -99,3 +99,15 @@ def form_factor(qsq: torch.Tensor, z, dtype=None) -> torch.Tensor:
     out = (torch.sum(a / (q + b), dim=1)
            + torch.sum(c * torch.exp(-d * q), dim=1))          # (nz, *qsq)
     return out[0] if scalar else out
+
+
+def form_factor_np(qsq: np.ndarray, z: int) -> np.ndarray:
+    """f(q^2) in NumPy float64 for one atomic number: the oracle the tests
+    hold ``form_factor`` to."""
+    abcd = load_parameters()[int(z) - 1]
+    a, b, c, d = abcd[:, 0], abcd[:, 1], abcd[:, 2], abcd[:, 3]
+    qsq = np.asarray(qsq, dtype=np.float64)
+    expand = (...,) + (None,) * qsq.ndim
+    lorentz = np.sum(a[expand] / (qsq[None] + b[expand]), axis=0)
+    gauss = np.sum(c[expand] * np.exp(-d[expand] * qsq[None]), axis=0)
+    return lorentz + gauss

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core.dtypes import Precision, get_precision
+from ..utils.plotting import pyplot
 from . import kirkland
 
 
@@ -444,3 +445,12 @@ class Potential:
 
     def to_cpu(self) -> np.ndarray:
         return self.array.cpu().numpy()
+
+    def plot(self):
+        """Draw the projected potential (the sum of |V| over slices)."""
+        plt = pyplot("Potential.plot")
+        fig, ax = plt.subplots()
+        arr = self.array_szy.abs().sum(dim=0).cpu().numpy().T
+        extent = (self.xs.min(), self.xs.max(), self.ys.min(), self.ys.max())
+        ax.imshow(arr, cmap="inferno", extent=extent)
+        plt.show()

@@ -26,6 +26,7 @@ import torch
 
 from ..core.constants import wavelength as _wavelength
 from ..core.dtypes import as_real, get_precision
+from ..utils.plotting import pyplot
 from .aberrations import Aberrations, apply_aberrations
 
 
@@ -192,6 +193,18 @@ class Probe:
         return Probe(self.xs, self.ys, self.mrad, self.eV, array=batch,
                      precision=self.precision, device=self.device,
                      cell2d=self.cell2d, ksq=self.ksq)
+
+
+    def plot(self):
+        """Draw |probe|^0.25 (the first of a batch) over the grid."""
+        plt = pyplot("Probe.plot")
+        fig, ax = plt.subplots()
+        arr = np.abs(self.to_cpu()) ** 0.25
+        if arr.ndim == 3:
+            arr = arr[0]
+        extent = (self.xs.min(), self.xs.max(), self.ys.min(), self.ys.max())
+        ax.imshow(arr.T, cmap="inferno", extent=extent)
+        plt.show()
 
 
 def create_batched_probes(base_probe: Probe, probe_positions) -> Probe:

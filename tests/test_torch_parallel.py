@@ -317,3 +317,18 @@ def test_devices_prints_the_torchrun_world(monkeypatch, capsys):
     assert "torchrun world: 4 rank(s), this is rank 2" in out
     assert "make_mesh(): frame=4 x probe=1, ranks [[0], [1], [2], [3]]" \
         in out
+
+
+def test_a_failed_rank_reports_its_stderr(tmp_path):
+    """Each rank keeps its whole standard error in rank<r>.stderr; when a
+    rank fails, launch raises with the last lines of each failed rank's
+    (the traceback itself), not only the launcher's summary."""
+    with pytest.raises(RuntimeError) as err:
+        dryrun.launch(tmp_path, 2, device="cpu", mesh="2x1",
+                      config={"parts": ["no_such_part"]}, timeout=120)
+    msg = str(err.value)
+    for r in (0, 1):
+        assert f"rank {r}'s standard error" in msg
+        log = (tmp_path / f"rank{r}.stderr").read_text()
+        assert "Traceback" in log and "no_such_part" in log
+    assert "AttributeError" in msg and "no_such_part" in msg

@@ -223,33 +223,59 @@ MEASURED_MODULES = ["pyslice_tpu_torch.__main__",
 PARALLEL_MODULES = ["pyslice_tpu_torch.parallel.mesh",
                     "pyslice_tpu_torch.parallel.sharded",
                     "pyslice_tpu_torch.parallel.dryrun"]
+EXAMPLE_MODULES = ["pyslice_tpu_torch.examples." + n for n in (
+    "_fixtures", "make_fixture", "tacaw_demo", "si_dumbbells",
+    "realistic_stem", "diffraction_toolkit", "ptychography_demo",
+    "inverse_potential", "calibration_demo", "experimental_calibration",
+    "walkthrough", "make_notebook", "verify_e2e")]
+# a percent-format notebook: importing it runs it, so the check reads its
+# import statements instead (none of JAX's; the port's imported)
+WALKTHROUGH = "pyslice_tpu_torch.examples.walkthrough"
 
 
 def test_port_imports_no_jax():
     """Every module of the port (the imaging toolkit's, the measured-data
-    and command-line modules, ``__main__`` included, and the multi-GPU
-    modules parallel.{mesh,sharded,dryrun}, by name), and chip_smoke.py,
-    imports with jax and pyslice_tpu blocked, and the package root exports
-    the imaging toolkit's and the measured-data names."""
+    and command-line modules, ``__main__`` included, the multi-GPU modules
+    parallel.{mesh,sharded,dryrun} and the examples, by name), and
+    chip_smoke.py, imports with jax, optax, pyslice_tpu and the tests'
+    fixtures blocked (the walkthrough, whose import runs it, by its import
+    statements: none names them, and the port's modules it names import),
+    and the package root exports the imaging toolkit's and the
+    measured-data names."""
     code = textwrap.dedent(f"""
-        import importlib, pkgutil, sys
-        sys.modules["jax"] = None
-        sys.modules["pyslice_tpu"] = None
+        import ast, importlib, pkgutil, sys
+        for blocked in ("jax", "optax", "pyslice_tpu", "tests",
+                        "tests.fixtures"):
+            sys.modules[blocked] = None
         sys.path.insert(0, {str(ROOT)!r})
         import pyslice_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             pyslice_tpu_torch.__path__, "pyslice_tpu_torch.")]
         missing = set({IMAGING_MODULES + MEASURED_MODULES
-                       + PARALLEL_MODULES!r}) - set(names)
+                       + PARALLEL_MODULES + EXAMPLE_MODULES!r}) - set(names)
         assert not missing, missing
         for name in names:
-            importlib.import_module(name)
+            if name != {WALKTHROUGH!r}:
+                importlib.import_module(name)
+                continue
+            spec = importlib.util.find_spec(name)
+            for node in ast.walk(ast.parse(open(spec.origin).read())):
+                mods = ([a.name for a in node.names]
+                        if isinstance(node, ast.Import) else
+                        [node.module] if isinstance(node, ast.ImportFrom)
+                        else [])
+                for mod in mods:
+                    assert mod.split(".")[0] not in ("jax", "optax",
+                                                     "pyslice_tpu",
+                                                     "tests"), mod
+                    if mod.startswith("pyslice_tpu_torch"):
+                        importlib.import_module(mod)
         for name in {IMAGING_NAMES + MEASURED_NAMES!r}:
             assert name in pyslice_tpu_torch.__all__, name
             getattr(pyslice_tpu_torch, name)
         import chip_smoke
-        assert "jax" not in [k for k, v in sys.modules.items() if v]
-        assert "pyslice_tpu" not in [k for k, v in sys.modules.items() if v]
+        for blocked in ("jax", "optax", "pyslice_tpu", "tests.fixtures"):
+            assert blocked not in [k for k, v in sys.modules.items() if v]
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
