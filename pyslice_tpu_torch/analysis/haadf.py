@@ -24,6 +24,7 @@ import torch
 
 from ..parallel import sharded
 from ..utils.plotting import pyplot
+from ..utils.profiling import span
 from .wf_data import WFData
 
 
@@ -63,19 +64,20 @@ class HAADFData:
 
         wf = self.wavefunction_data
         mesh = sharded.sharded_mesh_of(wf)
-        if mesh is not None:
-            collected = sharded.collected_sharded(
-                wf, mesh, mask, intensity=intensity)[:, 0].cpu().numpy()
-        else:
-            wf = sharded.local_of(wf)
-            if not isinstance(wf, torch.Tensor):
-                wf = torch.from_numpy(np.asarray(wf))
-            exits = wf[:, :, :, :, -1].abs()
-            if intensity:
-                exits = exits ** 2
-            m = torch.as_tensor(mask, device=exits.device).to(exits.dtype)
-            collected = (exits * m).sum(dim=(2, 3)).mean(dim=1) \
-                .cpu().numpy()
+        with span("analysis.adf"):
+            if mesh is not None:
+                collected = sharded.collected_sharded(
+                    wf, mesh, mask, intensity=intensity)[:, 0].cpu().numpy()
+            else:
+                wf = sharded.local_of(wf)
+                if not isinstance(wf, torch.Tensor):
+                    wf = torch.from_numpy(np.asarray(wf))
+                exits = wf[:, :, :, :, -1].abs()
+                if intensity:
+                    exits = exits ** 2
+                m = torch.as_tensor(mask, device=exits.device).to(exits.dtype)
+                collected = (exits * m).sum(dim=(2, 3)).mean(dim=1) \
+                    .cpu().numpy()
         self.adf = collected[nearest].reshape(len(self.xs), len(self.ys))
 
         if preview:

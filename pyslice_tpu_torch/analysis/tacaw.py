@@ -27,12 +27,14 @@ access. On a mesh of size 1 the local tensor takes the unsharded path.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..parallel import sharded
+from ..utils.profiling import span
 from .wf_data import WFData
 
 
@@ -46,14 +48,25 @@ def time_fft_intensity(wf_layer, chunk_elems: int = 1 << 26):
     time, kx, ky) tensor or array, in probe chunks. A tensor stays on its
     device; a NumPy array is computed on the CPU and returned as NumPy."""
     host = not isinstance(wf_layer, torch.Tensor)
-    wf = torch.from_numpy(np.ascontiguousarray(wf_layer)) if host \
-        else wf_layer
-    n_probes = wf.shape[0]
-    per_probe = int(np.prod(wf.shape[1:]))
-    chunk = max(1, int(chunk_elems // max(per_probe, 1)))
-    out = torch.cat([_time_fft_block(wf[i:i + chunk])
-                     for i in range(0, n_probes, chunk)], dim=0)
+    with span("analysis.time_fft"):
+        wf = torch.from_numpy(np.ascontiguousarray(wf_layer)) if host \
+            else wf_layer
+        n_probes = wf.shape[0]
+        per_probe = int(np.prod(wf.shape[1:]))
+        chunk = max(1, int(chunk_elems // max(per_probe, 1)))
+        out = torch.cat([_time_fft_block(wf[i:i + chunk])
+                         for i in range(0, n_probes, chunk)], dim=0)
     return out.numpy() if host else out
+
+
+def _reduction(method):
+    """A TACAWData reduction under the ``analysis.reduce`` span, through
+    its copy to the host."""
+    @functools.wraps(method)
+    def traced(self, *args, **kwargs):
+        with span("analysis.reduce"):
+            return method(self, *args, **kwargs)
+    return traced
 
 
 class TACAWData:
@@ -142,6 +155,7 @@ class TACAWData:
         if probe_index >= len(self.probe_positions):
             raise ValueError(f"Probe index {probe_index} out of range")
 
+    @_reduction
     def spectrum(self, probe_index: Optional[int] = None) -> np.ndarray:
         """Sum over k-space -> (n_freq,); None averages probes."""
         if self._mesh is not None:
@@ -156,6 +170,7 @@ class TACAWData:
         self._check_probe(probe_index)
         return it[probe_index].sum(dim=(1, 2)).cpu().numpy()
 
+    @_reduction
     def spectrum_image(self, frequency: float,
                        probe_indices: Optional[List[int]] = None) -> np.ndarray:
         """Summed k intensity at the nearest frequency, one value per
@@ -169,6 +184,7 @@ class TACAWData:
         sel = it[torch.as_tensor(probe_indices, device=it.device), freq_idx]
         return sel.sum(dim=(1, 2)).cpu().numpy()
 
+    @_reduction
     def diffraction(self, probe_index: Optional[int] = None) -> np.ndarray:
         """Sum over frequency -> (kx, ky)."""
         if self._mesh is not None:
@@ -179,6 +195,7 @@ class TACAWData:
         self._check_probe(probe_index)
         return it[probe_index].sum(dim=0).cpu().numpy()
 
+    @_reduction
     def spectral_diffraction(self, frequency: float,
                              probe_index: Optional[int] = None) -> np.ndarray:
         """Nearest-frequency (kx, ky) slice."""
@@ -191,6 +208,7 @@ class TACAWData:
         self._check_probe(probe_index)
         return it[probe_index, freq_idx].cpu().numpy()
 
+    @_reduction
     def masked_spectrum(self, mask: np.ndarray,
                         probe_index: Optional[int] = None) -> np.ndarray:
         """Apply a (kx, ky) mask, then sum over k."""
@@ -214,6 +232,7 @@ class TACAWData:
         self._check_probe(probe_index)
         return (it[probe_index] * m).sum(dim=(1, 2)).cpu().numpy()
 
+    @_reduction
     def dispersion(self, kx_path: np.ndarray, ky_path: np.ndarray,
                    probe_index: Optional[int] = None) -> np.ndarray:
         """Intensity along a k path -> (n_freq, n_k), nearest-neighbour k."""

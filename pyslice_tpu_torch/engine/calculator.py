@@ -44,6 +44,7 @@ from ..data.trajectory import Trajectory
 from ..physics.aberrations import Aberrations
 from ..physics.potential import make_plan
 from ..physics.probe import Probe, create_batched_probes
+from ..utils.profiling import span
 from .pipeline import SimSpec, frame_exit_waves, simulate_frames_into
 
 logger = logging.getLogger(__name__)
@@ -126,81 +127,84 @@ class MultisliceCalculator:
         probe after ``defocus``. ``mesh``: a ('frame', 'probe')
         DeviceMesh; the frame and probe counts must divide by its
         extents (checked here)."""
-        if isinstance(aberrations, dict):
-            aberrations = Aberrations(**aberrations)
-        self.aberrations = aberrations
-        self.trajectory = trajectory
-        self.aperture = aperture
-        self.voltage_eV = voltage_eV
-        self.defocus = defocus
-        self.slice_thickness = slice_thickness
-        self.sampling = sampling
-        self.save_path = save_path
-        self.cleanup_temp_files = cleanup_temp_files
-        self.slice_axis = slice_axis
-        self.batch_size = batch_size
-        self.device_output = device_output
-        if device_output and use_cache:
-            logger.info("device_output=True disables the frame cache "
-                        "(use WFData.save for checkpointing)")
-            use_cache = False
-        self.use_cache = use_cache
-        self.mesh = mesh
+        with span("setup"):
+            if isinstance(aberrations, dict):
+                aberrations = Aberrations(**aberrations)
+            self.aberrations = aberrations
+            self.trajectory = trajectory
+            self.aperture = aperture
+            self.voltage_eV = voltage_eV
+            self.defocus = defocus
+            self.slice_thickness = slice_thickness
+            self.sampling = sampling
+            self.save_path = save_path
+            self.cleanup_temp_files = cleanup_temp_files
+            self.slice_axis = slice_axis
+            self.batch_size = batch_size
+            self.device_output = device_output
+            if device_output and use_cache:
+                logger.info("device_output=True disables the frame cache "
+                            "(use WFData.save for checkpointing)")
+                use_cache = False
+            self.use_cache = use_cache
+            self.mesh = mesh
 
-        grid = grid_from_trajectory(trajectory, sampling=sampling,
-                                    slice_thickness=slice_thickness,
-                                    fast_grid=fast_grid)
-        self.grid = grid
-        self.xs, self.ys, self.zs = grid.xs, grid.ys, grid.zs
-        self.lx, self.ly, self.lz = grid.lx, grid.ly, grid.lz
-        self.nx, self.ny, self.nz = grid.nx, grid.ny, grid.nz
-        self.dx, self.dy = grid.dx, grid.dy
+            grid = grid_from_trajectory(trajectory, sampling=sampling,
+                                        slice_thickness=slice_thickness,
+                                        fast_grid=fast_grid)
+            self.grid = grid
+            self.xs, self.ys, self.zs = grid.xs, grid.ys, grid.zs
+            self.lx, self.ly, self.lz = grid.lx, grid.ly, grid.lz
+            self.nx, self.ny, self.nz = grid.nx, grid.ny, grid.nz
+            self.dx, self.dy = grid.dx, grid.dy
 
-        if probe_positions is None:
-            probe_positions = [(grid.lx / 2, grid.ly / 2)]   # center probe
-        self.probe_positions = probe_positions
-        self.n_probes = len(probe_positions)
-        self.n_frames = trajectory.n_frames
-        self.record_layers = (tuple(int(l) for l in record_layers)
-                              if record_layers is not None else None)
+            if probe_positions is None:
+                probe_positions = [(grid.lx / 2, grid.ly / 2)]  # center
+            self.probe_positions = probe_positions
+            self.n_probes = len(probe_positions)
+            self.n_frames = trajectory.n_frames
+            self.record_layers = (tuple(int(l) for l in record_layers)
+                                  if record_layers is not None else None)
 
-        oblique = grid.is_oblique
-        self.base_probe = Probe(grid.xs, grid.ys, aperture, voltage_eV,
-                                precision=self.precision, device=self.device,
-                                cell2d=grid.cell2d if oblique else None,
-                                ksq=grid.ksq2d() if oblique else None)
-        if defocus:
-            self.base_probe.defocus(defocus)
-        if aberrations is not None:
-            self.base_probe.aberrate(aberrations)
-        self._batched_probes = None
+            oblique = grid.is_oblique
+            with span("setup.probe"):
+                self.base_probe = Probe(
+                    grid.xs, grid.ys, aperture, voltage_eV,
+                    precision=self.precision, device=self.device,
+                    cell2d=grid.cell2d if oblique else None,
+                    ksq=grid.ksq2d() if oblique else None)
+                if defocus:
+                    self.base_probe.defocus(defocus)
+                if aberrations is not None:
+                    self.base_probe.aberrate(aberrations)
+            self._batched_probes = None
 
-        self.debye_waller = dict(debye_waller) if debye_waller else None
-        plan = make_plan(grid.xs, grid.ys, grid.zs, trajectory.positions,
-                         trajectory.atom_types, kind="kirkland",
-                         slice_axis=slice_axis,
-                         cell2d=grid.cell2d if oblique else None,
-                         debye_waller=debye_waller)
-        self.bandwidth_limit = bandwidth_limit
-        self.tilt = tuple(float(t) for t in tilt) if tilt is not None \
-            else None
-        self.spec = SimSpec.create(grid, plan, voltage_eV,
-                                   record_layers=self.record_layers,
-                                   precision=self.precision,
-                                   bandwidth_limit=bandwidth_limit,
-                                   tilt=tilt)
+            self.debye_waller = dict(debye_waller) if debye_waller else None
+            plan = make_plan(grid.xs, grid.ys, grid.zs, trajectory.positions,
+                             trajectory.atom_types, kind="kirkland",
+                             slice_axis=slice_axis,
+                             cell2d=grid.cell2d if oblique else None,
+                             debye_waller=debye_waller)
+            self.bandwidth_limit = bandwidth_limit
+            self.tilt = tuple(float(t) for t in tilt) if tilt is not None \
+                else None
+            self.spec = SimSpec.create(grid, plan, voltage_eV,
+                                       record_layers=self.record_layers,
+                                       precision=self.precision,
+                                       bandwidth_limit=bandwidth_limit,
+                                       tilt=tilt)
 
-        if mesh is not None:
-            from ..parallel.sharded import _check_divisible
-            _check_divisible(mesh, n_frames=self.n_frames,
-                             n_probes=self.n_probes)
-        elif device_output:
-            self._warn_resident(device_memory_limit(self.device))
+            if mesh is not None:
+                from ..parallel.sharded import _check_divisible
+                _check_divisible(mesh, n_frames=self.n_frames,
+                                 n_probes=self.n_probes)
+            elif device_output:
+                self._warn_resident(device_memory_limit(self.device))
 
-        self.output_dir = (Path(cache_root)
-                           / f"torch_{self._generate_cache_key()}")
-        if self.use_cache:
-            self.output_dir.mkdir(parents=True, exist_ok=True)
+            self.output_dir = (Path(cache_root)
+                               / f"torch_{self._generate_cache_key()}")
+            if self.use_cache:
+                self.output_dir.mkdir(parents=True, exist_ok=True)
 
     def _warn_resident(self, limit: Optional[int]) -> None:
         """Warn at set-up, not mid-run, when the resident exit-wave array
@@ -320,10 +324,16 @@ class MultisliceCalculator:
         return self._wf_data(wf)
 
     def run(self, progress: bool = True) -> WFData:
-        if self.mesh is not None:
-            return self._run_mesh()
-        if self.device_output:
-            return self._run_device(progress)
+        with span("run"):
+            if self.mesh is not None:
+                return self._run_mesh()
+            if self.device_output:
+                return self._run_device(progress)
+            return self._run_host(progress)
+
+    def _run_host(self, progress: bool) -> WFData:
+        """Host run: each frame's exit waves to a NumPy array, through the
+        frame cache."""
         t0 = time.time()
         dtype = (np.complex128 if self.precision.name == "double"
                  else np.complex64)

@@ -21,6 +21,7 @@ from ..ops import fused_step, fused_step_odd_resident, fused_step_resident
 from ..physics.potential import RasterizerPlan, plan_tensors, rasterize
 from ..physics.propagate import (bandwidth_kmax2, multislice, pick_fused,
                                  tilt_tangents)
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -99,24 +100,26 @@ def exit_waves_from_potential(v: torch.Tensor, probes: torch.Tensor,
     odd K4/K5 chain where that family fits) then fftshift(fft2(.)) by
     torch.fft. The k axes come from the plan's device constants, so a frame
     makes no host-to-device copy here."""
-    c = plan_tensors(spec.plan, spec.precision, probes.device)
-    kxs, kys = c["kxs"], c["kys"]
-    family = pick_fused(probes, spec.precision, v.shape[0])
-    if spec.record_layers is None and family in KSPACE_ENTRIES:
-        k = KSPACE_ENTRIES[family](
-            probes, v, kxs, kys,
-            sigma=interaction_parameter(spec.eV), lam=spec.lam, dz=spec.dz,
-            ksq=spec.ksq2d, kmax2=spec.kmax2, tantilt=spec.tantilt)
-        return k[..., None]                   # (probes, nx, ny, 1)
-    psi = multislice(probes, v, kxs, kys, eV=spec.eV,
-                     lam=spec.lam, dz=spec.dz,
-                     record_layers=spec.record_layers,
-                     precision=spec.precision, ksq=spec.ksq2d,
-                     kmax2=spec.kmax2, tantilt=spec.tantilt)
-    if spec.record_layers is None:
-        psi = psi[None]                       # (1, n_probes, nx, ny)
-    k = torch.fft.fftshift(torch.fft.fft2(psi), dim=(-2, -1))
-    return k.permute(1, 2, 3, 0)              # (probes, nx, ny, layers)
+    with span("slice_loop"):
+        c = plan_tensors(spec.plan, spec.precision, probes.device)
+        kxs, kys = c["kxs"], c["kys"]
+        family = pick_fused(probes, spec.precision, v.shape[0])
+        if spec.record_layers is None and family in KSPACE_ENTRIES:
+            k = KSPACE_ENTRIES[family](
+                probes, v, kxs, kys,
+                sigma=interaction_parameter(spec.eV), lam=spec.lam,
+                dz=spec.dz, ksq=spec.ksq2d, kmax2=spec.kmax2,
+                tantilt=spec.tantilt)
+            return k[..., None]                   # (probes, nx, ny, 1)
+        psi = multislice(probes, v, kxs, kys, eV=spec.eV,
+                         lam=spec.lam, dz=spec.dz,
+                         record_layers=spec.record_layers,
+                         precision=spec.precision, ksq=spec.ksq2d,
+                         kmax2=spec.kmax2, tantilt=spec.tantilt)
+        if spec.record_layers is None:
+            psi = psi[None]                       # (1, n_probes, nx, ny)
+        k = torch.fft.fftshift(torch.fft.fft2(psi), dim=(-2, -1))
+        return k.permute(1, 2, 3, 0)              # (probes, nx, ny, layers)
 
 
 def simulate_frames(positions_frames, probes: torch.Tensor,

@@ -49,6 +49,7 @@ import torch
 
 from ..core.constants import wavelength as _wavelength
 from ..physics.potential import rasterize
+from ..utils.profiling import span
 from .pipeline import SimSpec, exit_waves_from_potential
 
 
@@ -146,10 +147,11 @@ def fold(acc: torch.Tensor, mean: Optional[torch.Tensor], psi: torch.Tensor,
     multiply-add over the chunk (``add_`` with the factor as ``alpha``), so
     the fold allocates nothing: the (n_bins, chunk, nx, ny) product a
     broadcast would make is 1.6 GB at 2048^2 x 16 probes x 3 bins."""
-    for f, ph in enumerate(phases):
-        acc[f].add_(psi, alpha=complex(ph))
-    if mean is not None:
-        mean.add_(psi)
+    with span("stream.fold"):
+        for f, ph in enumerate(phases):
+            acc[f].add_(psi, alpha=complex(ph))
+        if mean is not None:
+            mean.add_(psi)
 
 
 def _digest(t) -> str:
@@ -269,13 +271,14 @@ class StreamingTACAW:
 
     def add_frame(self, frame_index: int, positions) -> None:
         """Feed one MD frame (each index exactly once, any order)."""
-        _frame_sharded_only(self._frame_extent)
-        t = int(frame_index)
-        if t in self._seen:
-            raise ValueError(f"frame {t} already streamed")
-        pos = _positions(positions, self.probes.device)
-        self._fold_frame(pos, self._phases([t])[0])
-        self._seen.add(t)
+        with span("stream.block"):
+            _frame_sharded_only(self._frame_extent)
+            t = int(frame_index)
+            if t in self._seen:
+                raise ValueError(f"frame {t} already streamed")
+            pos = _positions(positions, self.probes.device)
+            self._fold_frame(pos, self._phases([t])[0])
+            self._seen.add(t)
 
     def add_frame_block(self, frame_indices, positions_block) -> None:
         """Feed a block of frames: ``frame_indices`` (B,) and
@@ -284,24 +287,25 @@ class StreamingTACAW:
         calls of ``add_frame`` would. Frame-sharded (mesh frame extent
         F > 1): exactly F frames, the same block on every rank; each rank
         folds the frame of its frame coordinate."""
-        idx = [int(t) for t in frame_indices]
-        pos = _positions(positions_block, self.probes.device)
-        rows = range(len(idx))
-        if self._frame_extent > 1:
-            rows = [_frame_row(self.mesh, self._frame_extent, pos,
-                               len(idx))]
-        dup = self._seen.intersection(idx)
-        if dup or len(set(idx)) != len(idx):
-            raise ValueError(f"frame indices fed more than once: "
-                             f"{sorted(dup) or idx}")
-        if pos.dim() != 3 or pos.shape[0] != len(idx):
-            raise ValueError(
-                f"positions_block must be ({len(idx)}, n_atoms, 3), "
-                f"got {tuple(pos.shape)}")
-        phases = self._phases(idx)
-        for k in rows:
-            self._fold_frame(pos[k], phases[k])
-        self._seen.update(idx)
+        with span("stream.block"):
+            idx = [int(t) for t in frame_indices]
+            pos = _positions(positions_block, self.probes.device)
+            rows = range(len(idx))
+            if self._frame_extent > 1:
+                rows = [_frame_row(self.mesh, self._frame_extent, pos,
+                                   len(idx))]
+            dup = self._seen.intersection(idx)
+            if dup or len(set(idx)) != len(idx):
+                raise ValueError(f"frame indices fed more than once: "
+                                 f"{sorted(dup) or idx}")
+            if pos.dim() != 3 or pos.shape[0] != len(idx):
+                raise ValueError(
+                    f"positions_block must be ({len(idx)}, n_atoms, 3), "
+                    f"got {tuple(pos.shape)}")
+            phases = self._phases(idx)
+            for k in rows:
+                self._fold_frame(pos[k], phases[k])
+            self._seen.update(idx)
 
     def intensity(self) -> torch.Tensor:
         """(n_selected, n_probes, nx, ny) real intensity, on the stream's
@@ -309,30 +313,32 @@ class StreamingTACAW:
         integer bins X0 - n*mean is the only term it changes). On a mesh:
         a DTensor replicated over frames (the frame partials merged by one
         all_reduce) and sharded over probes (dim 1)."""
-        if len(self._seen) != self.n_frames:
-            raise ValueError(
-                f"streamed {len(self._seen)} of {self.n_frames} frames")
-        nb = len(self.bins)
-        n_probes, nx, ny = self.probes.shape
-        out = torch.empty((nb, n_probes, nx, ny),
-                          dtype=self.spec.precision.real,
-                          device=self.probes.device)
-        # frame partials merged a bin at a time: one bin's copy in memory
-        merge = lambda t: _merge_frames(t, self.mesh, self._frame_extent)
-        for i, sl in enumerate(self._chunk_slices):
-            mean = merge(self._mean_chunks[i]) if self._track_mean else None
-            for f in range(nb):
-                x = merge(self._acc_chunks[i][f])
-                if self._track_mean and self.bins[f] == 0:
-                    x = x - mean
-                torch.abs(x, out=out[f, sl])
-        out.square_()
-        if self.mesh is None:
-            return out
-        from ..parallel.mesh import PROBE_AXIS, extent
-        from ..parallel.sharded import _wrap
-        return _wrap(out, self.mesh, None, 1, shape=(
-            nb, n_probes * extent(self.mesh, PROBE_AXIS), nx, ny))
+        with span("stream.readout"):
+            if len(self._seen) != self.n_frames:
+                raise ValueError(
+                    f"streamed {len(self._seen)} of {self.n_frames} frames")
+            nb = len(self.bins)
+            n_probes, nx, ny = self.probes.shape
+            out = torch.empty((nb, n_probes, nx, ny),
+                              dtype=self.spec.precision.real,
+                              device=self.probes.device)
+            # frame partials merged a bin at a time: one bin's copy in memory
+            merge = lambda t: _merge_frames(t, self.mesh, self._frame_extent)
+            for i, sl in enumerate(self._chunk_slices):
+                mean = (merge(self._mean_chunks[i]) if self._track_mean
+                        else None)
+                for f in range(nb):
+                    x = merge(self._acc_chunks[i][f])
+                    if self._track_mean and self.bins[f] == 0:
+                        x = x - mean
+                    torch.abs(x, out=out[f, sl])
+            out.square_()
+            if self.mesh is None:
+                return out
+            from ..parallel.mesh import PROBE_AXIS, extent
+            from ..parallel.sharded import _wrap
+            return _wrap(out, self.mesh, None, 1, shape=(
+                nb, n_probes * extent(self.mesh, PROBE_AXIS), nx, ny))
 
     def spectrum(self, probe_index: Optional[int] = None) -> np.ndarray:
         """k-summed spectrum at the selected bins (host array): the mean over
@@ -530,10 +536,11 @@ class StreamingHAADF:
 
     def _detect(self, psi: torch.Tensor) -> torch.Tensor:
         """(chunk,) masked k sums of |psi| (or |psi|^2)."""
-        amp = psi.abs()
-        if self.intensity:
-            amp = amp * amp
-        return (amp * self._mask).sum(dim=(1, 2))
+        with span("stream.fold"):
+            amp = psi.abs()
+            if self.intensity:
+                amp = amp * amp
+            return (amp * self._mask).sum(dim=(1, 2))
 
     def _fold_frame(self, positions: torch.Tensor) -> None:
         if self.use_smatrix:
@@ -575,10 +582,11 @@ class StreamingHAADF:
         """Feed one frame. ``frame_index`` (optional) records which frames
         were folded in, for checkpoint/resume; without it, resume relies on
         the frame count alone."""
-        _frame_sharded_only(self._frame_extent)
-        self._track(frame_index)
-        self._fold_frame(_positions(positions, self.device))
-        self._n += 1
+        with span("stream.block"):
+            _frame_sharded_only(self._frame_extent)
+            self._track(frame_index)
+            self._fold_frame(_positions(positions, self.device))
+            self._n += 1
 
     def add_frame_block(self, positions_block, frame_indices=None) -> None:
         """Feed (B, n_atoms, 3) frames, in order. The whole block is checked
@@ -587,23 +595,24 @@ class StreamingHAADF:
         bookkeeping. Frame-sharded (mesh frame extent F > 1): exactly F
         frames, the same block on every rank; each rank folds the frame
         of its frame coordinate."""
-        pos = _positions(positions_block, self.device)
-        B = pos.shape[0] if pos.dim() else 0
-        rows = range(B)
-        if self._frame_extent > 1:
-            rows = [_frame_row(self.mesh, self._frame_extent, pos, B)]
-        if pos.dim() != 3:
-            raise ValueError(
-                f"positions_block must be (B, n_atoms, 3), "
-                f"got {tuple(pos.shape)}")
-        if frame_indices is not None and len(frame_indices) != B:
-            raise ValueError(
-                f"frame_indices has {len(frame_indices)} entries for "
-                f"a {B}-frame block")
-        self._track(frame_indices)
-        for k in rows:
-            self._fold_frame(pos[k])
-        self._n += B
+        with span("stream.block"):
+            pos = _positions(positions_block, self.device)
+            B = pos.shape[0] if pos.dim() else 0
+            rows = range(B)
+            if self._frame_extent > 1:
+                rows = [_frame_row(self.mesh, self._frame_extent, pos, B)]
+            if pos.dim() != 3:
+                raise ValueError(
+                    f"positions_block must be (B, n_atoms, 3), "
+                    f"got {tuple(pos.shape)}")
+            if frame_indices is not None and len(frame_indices) != B:
+                raise ValueError(
+                    f"frame_indices has {len(frame_indices)} entries for "
+                    f"a {B}-frame block")
+            self._track(frame_indices)
+            for k in rows:
+                self._fold_frame(pos[k])
+            self._n += B
 
     # --- checkpoint / resume ---------------------------------------------
 
@@ -656,15 +665,16 @@ class StreamingHAADF:
     def image(self) -> np.ndarray:
         """(n_x, n_y) ADF image over the reconstructed scan grid (the
         nearest probe to each point of the unique-x by unique-y grid)."""
-        if self._n == 0:
-            raise ValueError("no frames streamed")
-        from ..analysis.detectors import _scan_grid
-        acc = self._acc
-        if self.mesh is not None:
-            acc = _merge_frames(acc, self.mesh, self._frame_extent)
-            if not self.use_smatrix:
-                from ..parallel.sharded import _replicate_over_probe
-                acc = _replicate_over_probe(acc, self.mesh)
-        collected = acc.cpu().numpy() / self._n
-        xs, ys, nearest = _scan_grid(self.probe_positions)
-        return collected[nearest].reshape(len(xs), len(ys))
+        with span("stream.readout"):
+            if self._n == 0:
+                raise ValueError("no frames streamed")
+            from ..analysis.detectors import _scan_grid
+            acc = self._acc
+            if self.mesh is not None:
+                acc = _merge_frames(acc, self.mesh, self._frame_extent)
+                if not self.use_smatrix:
+                    from ..parallel.sharded import _replicate_over_probe
+                    acc = _replicate_over_probe(acc, self.mesh)
+            collected = acc.cpu().numpy() / self._n
+            xs, ys, nearest = _scan_grid(self.probe_positions)
+            return collected[nearest].reshape(len(xs), len(ys))

@@ -24,7 +24,8 @@ outputs prefixed with the name:
 Each rank writes its outputs (replicated results in full, sharded ones as
 its local block) to ``DIR/rank<r>.npz`` and its kernel launch counts,
 seconds (``seconds``: the timed calls; ``wall``: the start-up, each part
-whole and the save), collective statistics and, on the card, its peak
+whole and the save), collective statistics (``parallel.sharded.STATS``,
+the stem part's TACAWData run under a profiler) and, on the card, its peak
 device memory to ``DIR/rank<r>.json``, and its whole standard error to
 ``DIR/rank<r>.stderr``. ``launch``
 starts the ranks from a parent process with a time limit of its own;
@@ -189,7 +190,10 @@ class Rank:
                 torch.equal(loc, r))
             self.record["checks"]["unsharded_max_abs"] = float(
                 (loc - r).abs().max())
-        tac = TACAWData(wf)
+        # under a profiler, so that STATS times the frame -> kx all_to_all
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            tac = TACAWData(wf)
         nf = len(tac.frequencies)
         f1 = float(tac.frequencies[min(nf - 1, nf // 2 + 1)])
         nx, ny = len(tac.kxs), len(tac.kys)

@@ -26,6 +26,13 @@ Replicated results are plain tensors, the same on every rank.
 Collectives run on contiguous real views of complex tensors, the same
 calls on NCCL and on Gloo (whose all_reduce, all_gather_into_tensor and
 all_to_all_single take CUDA tensors as they are).
+
+Tracing (``utils.profiling``): each collective runs in a span of its own
+(``collective.all_to_all``, ``.all_reduce``, ``.all_gather``), and the
+frame -> kx trade with its time FFT in ``analysis.time_fft``. While a
+profiler records, ``STATS["all_to_all_s"]`` also adds the all_to_all's
+seconds between two synchronizes; an untraced run neither synchronizes
+there nor counts.
 """
 
 from __future__ import annotations
@@ -38,9 +45,11 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..engine.pipeline import SimSpec, simulate_frames_into
+from ..utils.profiling import span
 from .mesh import FRAME_AXIS, PROBE_AXIS, coord, extent
 
-# Seconds in the frame -> kx all_to_all (synchronized on CUDA).
+# Seconds in the frame -> kx all_to_all, between two synchronizes on
+# CUDA, counted only while a profiler records (see above).
 STATS = {"all_to_all_s": 0.0}
 
 
@@ -82,28 +91,31 @@ def _real(t: torch.Tensor) -> torch.Tensor:
 def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``t`` over ``group``: in place where ``t`` is contiguous
     (NCCL takes no other), else in a contiguous copy; returns the sum."""
-    t = t.contiguous()
-    dist.all_reduce(_real(t), group=group)
+    with span("collective.all_reduce"):
+        t = t.contiguous()
+        dist.all_reduce(_real(t), group=group)
     return t
 
 
 def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     """The group's blocks of ``t`` concatenated along dim 0, in the order
     of the group's ranks (the mesh coordinate)."""
-    t = t.contiguous()
-    n = dist.get_world_size(group)
-    out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype,
-                      device=t.device)
-    dist.all_gather_into_tensor(_real(out), _real(t), group=group)
+    with span("collective.all_gather"):
+        t = t.contiguous()
+        n = dist.get_world_size(group)
+        out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(_real(out), _real(t), group=group)
     return out
 
 
 def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     """``all_to_all_single``: block j of dim 0 goes to group rank j, and
     block j of the result came from group rank j."""
-    t = t.contiguous()
-    out = torch.empty_like(t)
-    dist.all_to_all_single(_real(out), _real(t), group=group)
+    with span("collective.all_to_all"):
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        dist.all_to_all_single(_real(out), _real(t), group=group)
     return out
 
 
@@ -216,21 +228,26 @@ def tacaw_intensity_sharded(wf, mesh, layer_index: int = -1,
     f_ext = extent(mesh, FRAME_AXIS)
     pad = (-nx) % f_ext
     stripe = (nx + pad) // f_ext
-    x = local_of(wf)[..., layer_index]            # (p_loc, f_loc, nx, ny)
-    if pad:
-        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
-    p_loc, f_loc, _, ny = x.shape
-    # kx stripes to dim 0; block j goes to frame rank j, and block j of the
-    # result holds frame rank j's frames of this rank's stripe.
-    send = x.reshape(p_loc, f_loc, f_ext, stripe, ny).permute(2, 0, 1, 3, 4)
-    _sync(x)
-    t0 = time.perf_counter()
-    recv = all_to_all(send, mesh.get_group(FRAME_AXIS))
-    _sync(recv)
-    STATS["all_to_all_s"] += time.perf_counter() - t0
-    x = recv.permute(1, 0, 2, 3, 4).reshape(p_loc, f_ext * f_loc, stripe, ny)
-    out = _wrap(_time_fft_block(x), mesh, 2, 0,
-                shape=(wf.shape[0], wf.shape[1], nx + pad, ny))
+    with span("analysis.time_fft") as traced:
+        x = local_of(wf)[..., layer_index]        # (p_loc, f_loc, nx, ny)
+        if pad:
+            x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        p_loc, f_loc, _, ny = x.shape
+        # kx stripes to dim 0; block j goes to frame rank j, and block j of
+        # the result holds frame rank j's frames of this rank's stripe.
+        send = x.reshape(p_loc, f_loc, f_ext, stripe, ny)
+        send = send.permute(2, 0, 1, 3, 4)
+        if traced is not None:
+            _sync(x)
+            t0 = time.perf_counter()
+        recv = all_to_all(send, mesh.get_group(FRAME_AXIS))
+        if traced is not None:
+            _sync(recv)
+            STATS["all_to_all_s"] += time.perf_counter() - t0
+        x = recv.permute(1, 0, 2, 3, 4)
+        x = x.reshape(p_loc, f_ext * f_loc, stripe, ny)
+        out = _wrap(_time_fft_block(x), mesh, 2, 0,
+                    shape=(wf.shape[0], wf.shape[1], nx + pad, ny))
     return crop_kx(out, mesh, nx) if pad and crop else out
 
 

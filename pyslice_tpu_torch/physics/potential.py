@@ -32,6 +32,7 @@ import torch
 
 from ..core.dtypes import Precision, get_precision
 from ..utils.plotting import pyplot
+from ..utils.profiling import span
 from . import kirkland
 
 
@@ -133,111 +134,114 @@ def make_plan(xs, ys, zs, positions_all_frames, atom_types,
             cells (slice_axis must be 2).
         debye_waller: optional {Z or element name: B} factors (A^2).
     """
-    if cell2d is not None and slice_axis != 2:
-        raise ValueError("oblique cells require slice_axis=2")
-    xs = np.asarray(xs, dtype=np.float64)
-    ys = np.asarray(ys, dtype=np.float64)
-    zs = np.asarray(zs, dtype=np.float64)
-    pos = np.asarray(positions_all_frames, dtype=np.float64)
-    if pos.ndim == 2:
-        pos = pos[None]
+    with span("setup.plan"):
+        if cell2d is not None and slice_axis != 2:
+            raise ValueError("oblique cells require slice_axis=2")
+        xs = np.asarray(xs, dtype=np.float64)
+        ys = np.asarray(ys, dtype=np.float64)
+        zs = np.asarray(zs, dtype=np.float64)
+        pos = np.asarray(positions_all_frames, dtype=np.float64)
+        if pos.ndim == 2:
+            pos = pos[None]
 
-    all_axes = [0, 1, 2]
-    all_axes.remove(slice_axis)
-    ax1, ax2 = all_axes
+        all_axes = [0, 1, 2]
+        all_axes.remove(slice_axis)
+        ax1, ax2 = all_axes
 
-    slice_coords = [xs, ys, zs][slice_axis]
-    spacings = [
-        xs[1] - xs[0] if len(xs) > 1 else 0.5,
-        ys[1] - ys[0] if len(ys) > 1 else 0.5,
-        zs[1] - zs[0] if len(zs) > 1 else 0.5,
-    ]
-    spacing = float(spacings[slice_axis])
-    nz = len(slice_coords)
-    edges = slice_edges(slice_coords, spacing)
+        slice_coords = [xs, ys, zs][slice_axis]
+        spacings = [
+            xs[1] - xs[0] if len(xs) > 1 else 0.5,
+            ys[1] - ys[0] if len(ys) > 1 else 0.5,
+            zs[1] - zs[0] if len(zs) > 1 else 0.5,
+        ]
+        spacing = float(spacings[slice_axis])
+        nz = len(slice_coords)
+        edges = slice_edges(slice_coords, spacing)
 
-    type_ids, unique_z = _normalize_types(atom_types)
-    n_types = len(unique_z)
-    dwf_b = None
-    if debye_waller:
-        bz = {}
-        for key, b in debye_waller.items():
-            z = kirkland.element_to_z(str(key)) if isinstance(key, str) \
-                else int(key)
-            if b < 0:
-                raise ValueError(f"Debye-Waller B must be >= 0, got {b} "
-                                 f"for {key}")
-            bz[z] = float(b)
-        unknown = set(bz) - set(int(z) for z in unique_z)
-        if unknown:
-            raise ValueError(
-                f"debye_waller lists elements not in the structure: "
-                f"{sorted(unknown)} (present: "
-                f"{[int(z) for z in unique_z]})")
-        dwf_b = np.array([bz.get(int(z), 0.0) for z in unique_z],
-                         dtype=np.float64)
+        type_ids, unique_z = _normalize_types(atom_types)
+        n_types = len(unique_z)
+        dwf_b = None
+        if debye_waller:
+            bz = {}
+            for key, b in debye_waller.items():
+                z = kirkland.element_to_z(str(key)) if isinstance(key, str) \
+                    else int(key)
+                if b < 0:
+                    raise ValueError(f"Debye-Waller B must be >= 0, got {b} "
+                                     f"for {key}")
+                bz[z] = float(b)
+            unknown = set(bz) - set(int(z) for z in unique_z)
+            if unknown:
+                raise ValueError(
+                    f"debye_waller lists elements not in the structure: "
+                    f"{sorted(unknown)} (present: "
+                    f"{[int(z) for z in unique_z]})")
+            dwf_b = np.array([bz.get(int(z), 0.0) for z in unique_z],
+                             dtype=np.float64)
 
-    # Occupancy over all frames, for both float64 and float32 edge
-    # comparisons: the run bins in the run precision, and an atom exactly
-    # on an edge can round across it in float32.
-    n_bins = n_types * nz
-    occupied = np.zeros(n_bins, dtype=bool)
-    max_count = 0
-    for f in range(pos.shape[0]):
-        for cast in (np.float64, np.float32):
-            sl, valid = bin_atoms_np(pos[f, :, slice_axis].astype(cast),
-                                     edges.astype(cast))
-            bins = type_ids[valid] * nz + sl[valid]
-            if bins.size:
-                counts = np.bincount(bins, minlength=n_bins)
-                occupied |= counts > 0
-                max_count = max(max_count, int(counts.max()))
+        # Occupancy over all frames, for both float64 and float32 edge
+        # comparisons: the run bins in the run precision, and an atom exactly
+        # on an edge can round across it in float32.
+        n_bins = n_types * nz
+        occupied = np.zeros(n_bins, dtype=bool)
+        max_count = 0
+        for f in range(pos.shape[0]):
+            for cast in (np.float64, np.float32):
+                sl, valid = bin_atoms_np(pos[f, :, slice_axis].astype(cast),
+                                         edges.astype(cast))
+                bins = type_ids[valid] * nz + sl[valid]
+                if bins.size:
+                    counts = np.bincount(bins, minlength=n_bins)
+                    occupied |= counts > 0
+                    max_count = max(max_count, int(counts.max()))
 
-    if max_count == 0:
-        # No atoms in the box: one empty bucket keeps shapes valid.
-        occupied[0] = True
-        max_count = 1
+        if max_count == 0:
+            # No atoms in the box: one empty bucket keeps shapes valid.
+            occupied[0] = True
+            max_count = 1
 
-    # a_max climbs the JAX plan's ~1.25x ladder of multiples of 8, so both
-    # packages pick the same capacity.
-    a_max = _round_up(max(1, int(np.ceil(max_count * (1.0 + pad_fraction)))), 8)
-    step = 8
-    while step < a_max:
-        step = _round_up(int(step * 1.25) + 1, 8)
-    a_max = step
-    occ_bins = np.nonzero(occupied)[0].astype(np.int32)
+        # a_max climbs the JAX plan's ~1.25x ladder of multiples of 8, so
+        # both packages pick the same capacity.
+        a_max = _round_up(
+            max(1, int(np.ceil(max_count * (1.0 + pad_fraction)))), 8)
+        step = 8
+        while step < a_max:
+            step = _round_up(int(step * 1.25) + 1, 8)
+        a_max = step
+        occ_bins = np.nonzero(occupied)[0].astype(np.int32)
 
-    nx_, ny_ = len(xs), len(ys)
-    if cell2d is not None:
-        A = np.asarray(cell2d, dtype=np.float64)
-        frac2d = np.linalg.inv(A)
-        kxs_plan = np.rint(np.fft.fftfreq(nx_) * nx_)
-        kys_plan = np.rint(np.fft.fftfreq(ny_) * ny_)
-        B = np.linalg.inv(A).T
-        g11 = float(B[:, 0] @ B[:, 0])
-        g22 = float(B[:, 1] @ B[:, 1])
-        g12 = float(B[:, 0] @ B[:, 1])
-        qsq2d = (g11 * kxs_plan[:, None] ** 2 + g22 * kys_plan[None, :] ** 2
-                 + 2.0 * g12 * kxs_plan[:, None] * kys_plan[None, :])
-        px_area = abs(float(np.linalg.det(A))) / (nx_ * ny_)
-    else:
-        frac2d = None
-        kxs_plan = np.fft.fftfreq(nx_, d=float(xs[1] - xs[0]))
-        kys_plan = np.fft.fftfreq(ny_, d=float(ys[1] - ys[0]))
-        qsq2d = None
-        px_area = float(xs[1] - xs[0]) * float(ys[1] - ys[0])
+        nx_, ny_ = len(xs), len(ys)
+        if cell2d is not None:
+            A = np.asarray(cell2d, dtype=np.float64)
+            frac2d = np.linalg.inv(A)
+            kxs_plan = np.rint(np.fft.fftfreq(nx_) * nx_)
+            kys_plan = np.rint(np.fft.fftfreq(ny_) * ny_)
+            B = np.linalg.inv(A).T
+            g11 = float(B[:, 0] @ B[:, 0])
+            g22 = float(B[:, 1] @ B[:, 1])
+            g12 = float(B[:, 0] @ B[:, 1])
+            qsq2d = (g11 * kxs_plan[:, None] ** 2
+                     + g22 * kys_plan[None, :] ** 2
+                     + 2.0 * g12 * kxs_plan[:, None] * kys_plan[None, :])
+            px_area = abs(float(np.linalg.det(A))) / (nx_ * ny_)
+        else:
+            frac2d = None
+            kxs_plan = np.fft.fftfreq(nx_, d=float(xs[1] - xs[0]))
+            kys_plan = np.fft.fftfreq(ny_, d=float(ys[1] - ys[0]))
+            qsq2d = None
+            px_area = float(xs[1] - xs[0]) * float(ys[1] - ys[0])
 
-    return RasterizerPlan(
-        nx=nx_, ny=ny_, nz=nz,
-        dx=float(xs[1] - xs[0]), dy=float(ys[1] - ys[0]),
-        slice_axis=slice_axis, inplane_axis1=ax1, inplane_axis2=ax2,
-        kxs=kxs_plan, kys=kys_plan,
-        edges=edges, type_ids=type_ids, unique_z=unique_z,
-        bucket_types=_pad_buckets((occ_bins // nz).astype(np.int32)),
-        bucket_slices=_pad_buckets((occ_bins % nz).astype(np.int32)),
-        a_max=int(a_max), kind=kind,
-        frac2d=frac2d, qsq2d=qsq2d, px_area=px_area, dwf_b=dwf_b,
-    )
+        return RasterizerPlan(
+            nx=nx_, ny=ny_, nz=nz,
+            dx=float(xs[1] - xs[0]), dy=float(ys[1] - ys[0]),
+            slice_axis=slice_axis, inplane_axis1=ax1, inplane_axis2=ax2,
+            kxs=kxs_plan, kys=kys_plan,
+            edges=edges, type_ids=type_ids, unique_z=unique_z,
+            bucket_types=_pad_buckets((occ_bins // nz).astype(np.int32)),
+            bucket_slices=_pad_buckets((occ_bins % nz).astype(np.int32)),
+            a_max=int(a_max), kind=kind,
+            frac2d=frac2d, qsq2d=qsq2d, px_area=px_area, dwf_b=dwf_b,
+        )
 
 
 def form_factors(plan: RasterizerPlan, precision: Precision,
@@ -301,11 +305,13 @@ def rasterize(positions, plan: RasterizerPlan, precision=None,
     an array placed on ``device``.
     """
     prec = get_precision(precision)
-    if not isinstance(positions, torch.Tensor):
-        if device is None:
-            raise ValueError("rasterize() of a host array needs a device")
-        positions = torch.as_tensor(np.asarray(positions), device=device)
-    return _rasterize_from(positions, plan, prec)
+    with span("rasterize"):
+        if not isinstance(positions, torch.Tensor):
+            if device is None:
+                raise ValueError("rasterize() of a host array needs a "
+                                 "device")
+            positions = torch.as_tensor(np.asarray(positions), device=device)
+        return _rasterize_from(positions, plan, prec)
 
 
 def _rasterize_from(positions: torch.Tensor, plan: RasterizerPlan,

@@ -1,59 +1,65 @@
-"""Tracing and profiling utilities.
+"""Tracing: named spans on the profiler's clock.
 
-Counterpart of ``pyslice_tpu/utils/profiling.py``:
+Counterpart of ``pyslice_tpu/utils/profiling.py``, whose host-clock
+``phase`` store the spans replace.
 
-* ``phase(name)`` — nestable wall-clock span timer accumulating into a
-  process-global report (``report()`` / ``reset()``).
-* ``trace(log_dir)`` — context manager around ``torch.profiler`` (CPU and
-  CUDA activities) that writes a Chrome trace into ``log_dir``.
-* ``device_timer`` — seconds a call of a thunk: CUDA events around the
-  calls, then a synchronize, when the thunk's result lies on a CUDA
-  device; the host clock on the CPU.
-* ``slice_step_rate`` — probe-frame slice-steps a second for a measured
-  propagation time.
+* ``span(name)`` — a context manager around one piece of the program's
+  work. While a ``torch.profiler`` records it is
+  ``torch.profiler.record_function("pyslice." + name)``: the span lands in
+  the profiler's trace, on the same clock as the kernels, copies and
+  memsets launched inside it, so each device operation can be followed to
+  the innermost span that launched it. Otherwise it is one shared no-op
+  context, and the span costs one check of the profiler's state: no clock
+  is read and nothing is allocated. Entered with ``as``, it gives the
+  profiler's range while one records and None otherwise, for work that
+  only a traced run should do.
+* ``trace(log_dir)`` — records the block with ``torch.profiler`` (CPU,
+  and CUDA where a card is present), which turns the spans on, and writes
+  ``<log_dir>/trace.json`` (Chrome trace format).
+
+The spans, nested as the calls nest (``pyslice.`` + the name):
+
+    setup, setup.plan, setup.probe     MultisliceCalculator.setup; make_plan
+    run                                MultisliceCalculator.run (the frame loop)
+    rasterize                          one frame's potential
+    slice_loop                         the slice kernels and the k-space step
+    stream.block, stream.fold,         the streaming engines' feeds, their
+    stream.readout                     folds and read-outs
+    analysis.time_fft, analysis.reduce, TACAWData's time FFT and reductions;
+    analysis.adf                       HAADFData.calculateADF
+    collective.all_to_all,             the collectives of parallel.sharded
+    collective.all_reduce,
+    collective.all_gather
+
+Device time a span: ``trace`` yields the profiler, whose
+``key_averages()`` has a row per span name (``pyslice.*``) with the device
+time of what ran inside it.
 """
 
 from __future__ import annotations
 
-import collections
 import contextlib
-import time
 from pathlib import Path
-from typing import Dict
 
 import torch
 
-_SPANS: Dict[str, float] = collections.defaultdict(float)
-_COUNTS: Dict[str, int] = collections.defaultdict(int)
+_OFF = contextlib.nullcontext()
 
 
-@contextlib.contextmanager
-def phase(name: str):
-    """Accumulating wall-clock span."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        _SPANS[name] += time.perf_counter() - t0
-        _COUNTS[name] += 1
-
-
-def report() -> Dict[str, dict]:
-    return {k: {"total_s": round(v, 4), "count": _COUNTS[k],
-                "mean_s": round(v / max(_COUNTS[k], 1), 4)}
-            for k, v in sorted(_SPANS.items())}
-
-
-def reset() -> None:
-    _SPANS.clear()
-    _COUNTS.clear()
+def span(name: str):
+    """``record_function("pyslice." + name)`` while a profiler records,
+    else the shared no-op context."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function("pyslice." + name)
 
 
 @contextlib.contextmanager
 def trace(log_dir: str = "pyslice_trace"):
     """torch.profiler trace of the block (CPU, and CUDA where a card is
     present), written as ``<log_dir>/trace.json`` (Chrome trace format).
-    Yields the profiler, whose ``key_averages()`` sums by operation."""
+    Yields the profiler, whose ``key_averages()`` sums by operation and by
+    span."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -65,32 +71,3 @@ def trace(log_dir: str = "pyslice_trace"):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(str(out / "trace.json"))
-
-
-def device_timer(thunk, iters: int = 3, warmup: int = 1) -> float:
-    """Seconds per call of ``thunk`` (which returns a tensor or a tuple
-    whose first element is one). On a CUDA tensor: CUDA events around the
-    ``iters`` calls and a synchronize; on the CPU: the host clock."""
-    out = None
-    for _ in range(max(warmup, 1)):
-        out = thunk()
-    first = out[0] if isinstance(out, (tuple, list)) else out
-    if isinstance(first, torch.Tensor) and first.is_cuda:
-        torch.cuda.synchronize(first.device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            thunk()
-        end.record()
-        end.synchronize()
-        return 1e-3 * start.elapsed_time(end) / iters
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        thunk()
-    return (time.perf_counter() - t0) / iters
-
-
-def slice_step_rate(seconds_per_frame: float, n_probes: int, nz: int) -> float:
-    """Probe-frame slice-steps a second."""
-    return n_probes * nz / seconds_per_frame

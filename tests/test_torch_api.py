@@ -58,6 +58,21 @@ NOT_PORTED = {
         "moved:ops/fused_step_odd.py:scrambled_factors",
     ("ops/transmit.py", "transmit_pallas"):
         "moved:ops/fused_step.py:row_pass",
+    ("utils/profiling.py", "phase"):
+        "a host-clock span store beside the trace; the port's span is a "
+        "torch.profiler range on the trace's own clock",
+    ("utils/profiling.py", "report"):
+        "reads phase's store, which the port does not keep; the "
+        "profiler's key_averages() sums the spans",
+    ("utils/profiling.py", "reset"):
+        "clears phase's store, which the port does not keep",
+    ("utils/profiling.py", "device_timer"):
+        "a kernel timer that nothing in the package calls; the benchmark "
+        "and the scripts time the card from the profiler's trace or CUDA "
+        "events",
+    ("utils/profiling.py", "slice_step_rate"):
+        "a rate that nothing in the package calls; the benchmark derives "
+        "its rates from the trace",
 }
 
 # each demo of the JAX package and its counterpart in the port
