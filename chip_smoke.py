@@ -13,8 +13,10 @@ Phases, each printing one line (or a few) and failing hard:
    sum((|F|-|D|)^2)/sum(|F|^2) <= 1e-6; A and B each with its tile plan
    and persistent grid, B also at 32 planes (the adjoint's pair stream);
 4. the mixed-radix kernels the same way: K4 (every mode) and K5 at
-   16 x 1023^2, each with its tile plan and persistent grid (K5 also at
-   32 planes, the adjoint's pair stream), K6 (the resident slice loop) at
+   16 x 1023^2, each with its plan and persistent grid (K5 also at
+   32 planes, the adjoint's pair stream; at 1023 K5 takes its register
+   engine, so K5's tile engine is checked and timed on its own at
+   16 and 32 x 1152^2, its launches counted), K6 (the resident slice loop) at
    1 x 1023^2 and 1 x 1024^2 x 14 slices (its mixed-radix and its
    power-of-two instantiation), exit wave and k space with the complex t
    stack and the phase stack, each with its plan and grid, two launches
@@ -336,9 +338,14 @@ def launches_of(fn):
 
 
 def want_counts(**n):
+    """Launch counts with every kernel at 0 but those given. The phases
+    that count launches run K5 only at 1023, which takes its register
+    engine, so "k5_regs" follows "k5" unless given."""
     from pyslice_tpu_torch.ops import fused_step as fs
     want = dict.fromkeys(fs.launches, 0)
     want.update(n)
+    if "k5_regs" not in n:
+        want["k5_regs"] = want["k5"]
     return want
 
 
@@ -450,9 +457,11 @@ def records_for(errs, timings, bounds, shape):
     return records
 
 
-def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES):
+def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES, n_tiles=1152):
     """Phase 4: K4, K5 at P x n^2 and K6 at 1 x n^2 and 1 x 1024^2 against
-    their plain versions. Returns the JSON records keyed by kernel."""
+    their plain versions; K5's tile engine also at P and 2P x n_tiles^2,
+    an axis the register engine does not take. Returns the JSON records
+    keyed by kernel."""
     import numpy as np
     import torch
     from pyslice_tpu_torch.core.constants import (interaction_parameter,
@@ -520,8 +529,10 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES):
     }
     plans = {k: dict(fo.last_launch[k]) for k in ("k4", "k5")}
     for k, plan in plans.items():
-        print(f"    {k.upper()} tile plan and persistent grid at {P}x{n}^2: "
-              f"{plan}")
+        print(f"    {k.upper()} {plan.get('engine', 'tiles')} plan and "
+              f"persistent grid at {P}x{n}^2: {plan}")
+    require(plans["k5"]["engine"] == "regs",
+            f"K5 at {n} ran {plans['k5']['engine']}, not its register engine")
     del buf
     # K5 on 2P planes: the adjoint chain's pair stream
     buf = torch.randn((2 * P, n, n), dtype=torch.complex64, device=dev,
@@ -536,6 +547,7 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES):
           f"{k5_pairs['plain_ms']:.4f} ms, bound {k5_pairs['bound_ms']:.4f} "
           f"ms; plan and grid {fo.last_launch['k5']}")
     del buf
+    k5_tiles = k5_tile_check(dev, g, P, n_tiles, lam)
     barrier_ms = {}
     for key, (p1, tstack, pm) in loops.items():
         timings[key] = (
@@ -553,6 +565,7 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES):
     records = records_for({k: errs[k] for k in ("k4", "k5")}, timings,
                           bounds, f"{P}x{n}^2")
     records["k5"][f"at_{2 * P}_planes"] = k5_pairs
+    records["k5"][f"tiles_at_{n_tiles}"] = k5_tiles
     for k, plan in plans.items():
         records[k]["plan"] = plan
     records.update(records_for(
@@ -564,6 +577,49 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES):
     for key in loops:
         records[key].update(plan=k6_plans[key], barrier_ms=barrier_ms[key])
     return records
+
+
+def k5_tile_check(dev, g, P, n, lam):
+    """K5's tile engine at P and 2P x n^2 (an axis outside REG_MR_AXES)
+    against its plain version: both launches on the tiles ("k5_regs" 0),
+    then timed. Returns its record: error, ms, plain_ms, bound_ms, plan
+    and grid at P planes, and the same at 2P under "at_<2P>_planes"."""
+    import numpy as np
+    import torch
+    from pyslice_tpu_torch.ops import fused_step as fs
+    from pyslice_tpu_torch.ops import fused_step_odd as fo
+
+    require(not isinstance(fo.col_plan(n, P, n), fo.RegMrPlan),
+            f"K5 at {n} plans the register engine, not the tiles")
+    kxs = np.fft.fftfreq(n, 0.1)
+    prop = fs.fresnel_plane(kxs, kxs, lam, 0.4846, device=dev)
+    rec = {"shape": f"{P}x{n}^2"}
+    for planes in (P, 2 * P):
+        buf = torch.randn((planes, n, n), dtype=torch.complex64, device=dev,
+                          generator=g)
+        got, counts, _ = launches_of(lambda: fo.col_pass_mr(buf, prop))
+        require(counts == want_counts(k5=1, k5_regs=0),
+                f"K5 tiles at {planes}x{n}^2: launches {counts}")
+        plan = dict(fo.last_launch["k5"])
+        require(plan["engine"] == "tiles",
+                f"K5 at {planes}x{n}^2 ran {plan['engine']}, not the tiles")
+        err = check(f"K5 tiles {planes}x{n}^2", got,
+                    fs._plain_col_pass(buf, prop))
+        del got
+        part = {"max_abs_err": err,
+                "ms": cuda_ms(lambda: fo.col_pass_mr(buf, prop, out=buf)),
+                "plain_ms": cuda_ms(lambda: fs._plain_col_pass(buf, prop)),
+                "bound_ms": kernel_bound("pass", planes, n)["bound_ms"],
+                "plan": plan}
+        print(f"  K5 tiles at {planes}x{n}^2: {part['ms']:.4f} ms, plain "
+              f"{part['plain_ms']:.4f} ms, bound {part['bound_ms']:.4f} ms; "
+              f"plan and grid {plan}")
+        if planes == P:
+            rec.update(part)
+        else:
+            rec[f"at_{planes}_planes"] = part
+        del buf
+    return rec
 
 
 def hbn_box(lx, n_frames, seed=0):
@@ -731,7 +787,6 @@ def odd_stem_phase(dev, card, traj, n_frames=N_FRAMES):
     Returns the launch counts."""
     import numpy as np
     import pyslice_tpu_torch as pt
-    from pyslice_tpu_torch.ops import fused_step as fs
 
     traj = traj.slice_timesteps(list(range(n_frames)))
     calc = pt.MultisliceCalculator(device=dev)
@@ -743,8 +798,8 @@ def odd_stem_phase(dev, card, traj, n_frames=N_FRAMES):
           f"{calc.nx}x{calc.ny}x{calc.nz}, {calc.n_probes} probes")
     require((calc.nx, calc.ny, calc.n_probes) == (N_ODD, N_ODD, N_PROBES),
             "expected 16 probes at 1023^2")
-    want = dict.fromkeys(fs.launches, 0)
-    want.update(k4=traj.n_frames * calc.nz, k5=traj.n_frames * (calc.nz - 1))
+    want = want_counts(k4=traj.n_frames * calc.nz,
+                       k5=traj.n_frames * (calc.nz - 1))
     wf, counts, run_s = counted_run(calc, want)
     check_frame0(calc, traj, wf.wavefunction_data)
     frame_times(calc, traj, card, run_s, traj.n_frames,
@@ -897,6 +952,7 @@ def step_want(keys, nz):
     row, col, bwd = keys
     want = dict.fromkeys(fs.launches, 0)
     want.update({row: nz + 1, col: 2 * (nz - 1), bwd: nz - 1})
+    want["k5_regs"] = want["k5"]        # K5 at 1023: the register engine
     return want
 
 

@@ -51,7 +51,11 @@
 // path is 5-6% faster at 1152^2. Measured (PERF.md,
 // scripts/time_col_pass_mr.py, H100 at 700 W): 0.35 ms at 16 x 1023^2
 // against 0.53 ms for the two-blocks-an-SM design it replaced, 0.65
-// against 1.04 ms at 32 planes; bounds 0.082 and 0.162 ms.
+// against 1.04 ms at 32 planes; bounds 0.082 and 0.162 ms. On the axes
+// whose stages split into two odd groups of at most 33 values and for
+// which it is built (1023, 513), K5 runs instead on the register engine
+// of fft_regs_mr.cuh (col_pass_mr_reg_kernel): 0.21 ms at 16 x 1023^2,
+// 0.39 at 32 planes (PERF.md).
 //
 // K4 (a tile is 2^logc rows, each one transform along y): kernel A's
 // modes, x t (/ ny) in the first forward stage's loads (first, mid), or
@@ -68,6 +72,7 @@
 // radians). Plain C interface for ctypes: each function launches on the
 // given stream and returns the CUDA error as an int.
 
+#include "fft_regs_mr.cuh"
 #include "tile_async.cuh"
 
 namespace {
@@ -130,6 +135,99 @@ row_pass_mr_kernel(float2* out, const float2* in,
       });
 }
 
+// K5 on the register engine of fft_regs_mr.cuh, for the axes of
+// REG_MR_AXES (ops/fused_step_odd.py: 1023 = 31 | 11 x 3, 513 = 19 | 3 x 3
+// x 3). Tile u is columns (u % tpp) << kMrLogc .. of probe u / tpp;
+// thread tid is lane c = tid mod 2^kMrLogc, the tile's column y, and
+// t = tid >> kMrLogc of the T a transform, so a warp's loads are four row
+// segments of the tile's eight columns (B's layout). Thread t < N2 loads
+// rows t + N2 m of its column straight into registers; FFT_x, x prop / n,
+// IFFT_x; the thread stores the rows it loaded. prop is read at the rows
+// the thread holds after the forward, every load issued before the
+// forward's second stage: with one block an SM (168 registers at 1023)
+// nothing else on the SM would hide them. Both transforms exchange
+// through one buffer (slot e 2^kMrLogc + c), four barriers a tile: a
+// second buffer (two barriers) ran 5-6% slower at 1023 (PERF.md), its
+// 65 KB taken from the SM's L1. A column past ny (the last tile) reads
+// column ny - 1 and stores nothing. `out` may equal `in`: a tile is read
+// whole before any of it is written.
+constexpr int kMrLogc = 3;
+
+template <int R1, int... R2>
+__global__ void __launch_bounds__(MrAxis<R1, R2...>::T << kMrLogc, 1)
+col_pass_mr_reg_kernel(float2* out, const float2* in,
+                       const float2* __restrict__ prop,
+                       const float2* __restrict__ tw, int ny, int tpp,
+                       int n_tiles) {
+  using Ax = MrAxis<R1, R2...>;
+  constexpr int n = Ax::n;
+  constexpr int logc = kMrLogc;
+  extern __shared__ __align__(16) float2 smem16[];
+  float2* tws = smem16 + (n << logc);     // after the exchange buffer
+  mr_table<Ax>(tws, tw);
+  const int c = threadIdx.x & ((1 << logc) - 1);
+  const int t = threadIdx.x >> logc;
+  float2* const xc = smem16 + c;
+  const auto xs = [&](int e) { return xc + (e << logc); };
+  const float scale = 1.0f / (float)n;
+  const int step = Ax::N2 * ny;    // below 2^31 / kMrE: n ny <= 4096^2
+  const int pstep = Ax::N1 * ny;
+  __syncthreads();
+  for (int u = blockIdx.x; u < n_tiles; u += gridDim.x) {
+    const int y = ((u % tpp) << logc) + c;
+    const int yc = min(y, ny - 1);
+    const size_t col = (size_t)(u / tpp) * n * ny + (size_t)t * ny + yc;
+    const float2* pr = prop + (size_t)t * ny + yc;
+    float2 v[kMrE];
+    if (t < Ax::N2) {
+#pragma unroll
+      for (int m = 0; m < Ax::N1; ++m) v[m] = in[col + m * step];
+      mr_fwd_first<Ax>(v, t, xs);
+    }
+    __syncthreads();
+    if (t < Ax::N1) {
+      float2 f[Ax::N2];
+#pragma unroll
+      for (int q = 0; q < Ax::N2; ++q) f[q] = __ldg(&pr[q * pstep]);
+      mr_fwd_second<Ax>(v, t, xs, tws);
+#pragma unroll
+      for (int q = 0; q < Ax::N2; ++q) v[q] = cscale(cmul(v[q], f[q]), scale);
+      Ax::template group<true>(v);
+    }
+    __syncthreads();    // the forward's reads are done
+    if (t < Ax::N1) mr_inv_put<Ax>(v, t, xs);
+    __syncthreads();
+    if (t < Ax::N2) {
+      float2* dst = out + col;
+      mr_inv_second<Ax>(v, t, xs, tws, [&](int q, float2 x) {
+        if (y < ny) dst[q * step] = x;
+      });
+    }
+    __syncthreads();    // the inverse's reads are done
+  }
+}
+
+// Host: launch K5's register kernel on the axis R1 | R2... (see
+// fs_col_pass_mr_reg).
+template <int R1, int... R2>
+int launch_col_reg(float2* out, const float2* in, const float2* prop,
+                   const float2* tw, int n_probes, int ny, int logc,
+                   int threads, int* info, cudaStream_t stream) {
+  using Ax = MrAxis<R1, R2...>;
+  if (logc != kMrLogc || threads != Ax::T << kMrLogc) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const auto kernel = col_pass_mr_reg_kernel<R1, R2...>;
+  const size_t smem = mr_reg_smem(Ax::n, kMrLogc);
+  const int tpp = (ny + (1 << kMrLogc) - 1) >> kMrLogc;
+  const long tiles = (long)n_probes * tpp;
+  const cudaError_t err = persistent_grid(kernel, threads, smem, tiles, info);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)info[0], threads, smem, stream>>>(out, in, prop, tw, ny,
+                                                       tpp, (int)tiles);
+  return (int)cudaGetLastError();
+}
+
 // Host: the shared memory of a tile of 2^logc lanes of n and the table.
 size_t tile_smem(int n, int logc) {
   return (kBuffers * ((size_t)n << logc) + n) * sizeof(float2);
@@ -188,6 +286,30 @@ int fs_col_pass_mr(void* out, const void* in, const void* prop,
       (float2*)out, (const float2*)in, (const float2*)prop, ex, ny, logc,
       tpp, (int)tiles, vec16);
   return (int)cudaGetLastError();
+}
+
+// K5 on the register engine, for an axis nx of REG_MR_AXES
+// (ops/fused_step_odd.py col_plan): logc and threads, the plan's lanes
+// (log2) and block, must be those of the axis's instantiation below; tw
+// the full twiddle table of nx. info as K5's. Any other axis or plan is
+// refused (cudaErrorInvalidValue).
+int fs_col_pass_mr_reg(void* out, const void* in, const void* prop,
+                       const void* tw, int n_probes, int nx, int ny,
+                       int logc, int threads, int* info, void* stream) {
+  float2* o = (float2*)out;
+  const float2* i = (const float2*)in;
+  const float2* p = (const float2*)prop;
+  const float2* w = (const float2*)tw;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (nx) {
+    case 1023:
+      return launch_col_reg<31, 11, 3>(o, i, p, w, n_probes, ny, logc,
+                                       threads, info, s);
+    case 513:
+      return launch_col_reg<19, 3, 3, 3>(o, i, p, w, n_probes, ny, logc,
+                                         threads, info, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

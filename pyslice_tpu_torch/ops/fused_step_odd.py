@@ -22,11 +22,19 @@ limits of Pallas on the TPU and are not ported. There is no fused k-space
 conversion on this chain (the JAX package has none either):
 ``engine.pipeline`` converts its exit wave with ``torch.fft``.
 
+K5 has a second engine (``csrc/fft_regs_mr.cuh``): on the axes of
+``REG_MR_AXES`` (1023 = 31 | 11 x 3, 513 = 19 | 3 x 3 x 3), whose stage
+radices split into two odd groups of at most 33 values, each thread keeps
+its values of a column in registers from its load to its store, with one
+exchange through shared memory a transform (B's design on an odd axis).
+``col_plan`` picks the engine from the shape alone.
+
 Each wrapper takes its plain ``torch.fft`` version (kernel A's and B's) for
 a tensor on the CPU, and for a CUDA tensor launches its kernel or raises.
-``launches["k4"]`` / ``launches["k5"]`` count the kernel launches;
+``launches["k4"]`` / ``launches["k5"]`` count the kernel launches,
+``launches["k5_regs"]`` those of K5 on the register engine;
 ``last_launch["k4"]`` / ``last_launch["k5"]`` hold each one's last plan and
-persistent grid.
+persistent grid, K5's with its ``engine`` ("regs" or "tiles").
 
 Sizes (``supported_size_mr``): every axis the JAX package gives a kernel,
 up to 4096 (the engine's shared-memory limit): the JAX odd kernels' rule
@@ -249,6 +257,55 @@ def pair_tile_plan(n: int, nx: int) -> TilePlan:
                     shared_table=shared)
 
 
+# K5's register engine (csrc/fft_regs_mr.cuh, the kernel
+# col_pass_mr_reg_kernel of csrc/fused_step_odd.cu): an axis n = N1 x N2,
+# N1 its first stage radix and N2 the product of the others, both odd and
+# at most REG_MR_GROUP; a transform takes max(N1, N2) threads, each holding
+# a group's values in registers, and one exchange through shared memory,
+# REG_MR_LOGC lanes (columns) a block, one block an SM. REG_MR_AXES: the
+# axes the kernel is built for (the cases of fs_col_pass_mr_reg) and their
+# groups (N1, N2), each timed faster than the tiles in turns with them
+# (scripts/time_col_pass_mr.py, PERF.md); every other axis keeps the
+# tiles.
+REG_MR_GROUP = 33
+REG_MR_LOGC = 3
+REG_MR_AXES = {1023: (31, 33), 513: (19, 27)}
+
+
+@dataclasses.dataclass(frozen=True)
+class RegMrPlan:
+    groups: tuple       # (N1, N2)
+    logc: int           # 2^logc lanes (columns) a block
+    threads: int        # a block: max(N1, N2) threads a lane
+    smem_bytes: int     # the exchange buffer of the lanes and the table
+    tiles: int          # (probe, tile) pairs the persistent grid walks
+
+    @property
+    def lanes(self) -> int:
+        return 1 << self.logc
+
+
+def reg_mr_smem(n: int, logc: int) -> int:
+    """The shared memory of K5's register kernel: one exchange buffer of
+    2^logc lanes of n, and the n-entry table of stage twiddles."""
+    return 8 * ((n << logc) + n)
+
+
+def col_plan(n: int, n_probes: int, lanes: int):
+    """K5's plan on transforms of length n (nx) for n_probes x ``lanes``
+    (ny columns): the register engine's (``RegMrPlan``) on the axes of
+    REG_MR_AXES, the tiles' (``tile_plan``) on every other; it reads only
+    the shape. At 1023: groups (31, 33), 8 lanes of 33 threads (264),
+    73,656 bytes."""
+    if n not in REG_MR_AXES:
+        return tile_plan(n, n_probes, lanes)
+    n1, n2 = REG_MR_AXES[n]
+    return RegMrPlan(groups=(n1, n2), logc=REG_MR_LOGC,
+                     threads=max(n1, n2) << REG_MR_LOGC,
+                     smem_bytes=reg_mr_smem(n, REG_MR_LOGC),
+                     tiles=n_probes * -(-lanes // (1 << REG_MR_LOGC)))
+
+
 def record_launch(kernel: str, plan: TilePlan, info) -> None:
     """Keep a launch's plan and grid (``info``: grid, blocks per SM, SMs,
     shared memory bytes) in ``last_launch[kernel]``."""
@@ -297,9 +354,9 @@ def row_pass_mr(mode: str, state: torch.Tensor, t: torch.Tensor,
 
 def col_pass_mr(state: torch.Tensor, prop: torch.Tensor,
                 out=None) -> torch.Tensor:
-    """K5: IFFT_x(prop * FFT_x(state)) with the mixed-radix engine; ``prop``
-    the natural-order (nx, ny) complex64 Fresnel plane. ``out`` may be
-    ``state``."""
+    """K5: IFFT_x(prop * FFT_x(state)) on the engine of ``col_plan``
+    (registers or tiles); ``prop`` the natural-order (nx, ny) complex64
+    Fresnel plane. ``out`` may be ``state``."""
     if state.device.type == "cpu":
         return _plain_col_pass(state, prop, out)
     _check_state(state, lambda n: supported_size_mr(n, state.shape[0]),
@@ -307,18 +364,29 @@ def col_pass_mr(state: torch.Tensor, prop: torch.Tensor,
     n_probes, nx, ny = state.shape
     _check_cuda(prop, "prop", (nx, ny), torch.complex64, state.device)
     out = _out_for(state, out)
-    plan = tile_plan(nx, n_probes, ny)
+    plan = col_plan(nx, n_probes, ny)
+    regs = isinstance(plan, RegMrPlan)
     info = (ctypes.c_int * 4)()
     lib = build().libs["fused_step_odd"]
+    launch = lib.fs_col_pass_mr_reg if regs else lib.fs_col_pass_mr
     with torch.cuda.device(state.device):
-        err = lib.fs_col_pass_mr(
+        err = launch(
             out.data_ptr(), state.data_ptr(), prop.data_ptr(),
             _twiddles(nx, state.device, full=True).data_ptr(), n_probes, nx,
             ny, plan.logc, plan.threads, ctypes.addressof(info),
             torch.cuda.current_stream().cuda_stream)
-    record_launch("k5", plan, info)
+    if regs:
+        rec = last_launch["k5"]
+        rec.clear()
+        rec.update(lanes=plan.lanes, threads=plan.threads,
+                   groups=plan.groups, tiles=plan.tiles)
+        rec.update(zip(("grid", "blocks_per_sm", "sms", "smem_bytes"), info))
+    else:
+        record_launch("k5", plan, info)
+    last_launch["k5"]["engine"] = "regs" if regs else "tiles"
     _raise_on(err, "col_pass_mr (K5)")
     launches["k5"] += 1
+    launches["k5_regs"] += regs
     return out
 
 

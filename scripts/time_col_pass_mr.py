@@ -219,6 +219,8 @@ def main():
                      "residual": errs[0][1], "plan": plan}
             form = (f"{args.mode}{' phase' if args.phase else ''} "
                     if kernel in ("a", "k4", "k7", "k8") else
+                    f"{plan.get('engine', 'tiles')} engine "
+                    if kernel == "k5" else
                     f"{'phase ' if args.phase else ''}"
                     f"{'kspace ' if args.kspace else ''}"
                     if kernel == "k6" else "")

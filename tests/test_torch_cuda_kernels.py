@@ -264,6 +264,76 @@ def test_col_pass_mr_matches_plain(dev, n, P):
 
 
 POW2_SIZES = [128, 256, 512, 1024, 2048, 4096]
+# K5's register engine (fo.REG_MR_AXES): 1023 = 31 | 11 x 3, 513 = 19 |
+# 3 x 3 x 3
+REG_MR_SIZES = [1023, 513]
+
+
+@pytest.mark.parametrize("n", REG_MR_SIZES)
+@pytest.mark.parametrize("P", [1, 3, 16, 32])
+@pytest.mark.parametrize("ny", [393, 394, 1023])
+def test_col_pass_mr_regs_match_plain(dev, n, P, ny):
+    """K5 on its register engine, P x n x ny (393: a ragged last tile of
+    one column; 394 of two; 1023 of seven), against its plain version,
+    and in place the same bits."""
+    psi = _wave(dev, P, n, ny)
+    prop = _prop(dev, n, ny)
+    n0, r0 = fs.launches["k5"], fs.launches["k5_regs"]
+    got = fo.col_pass_mr(psi, prop)
+    assert (fs.launches["k5"], fs.launches["k5_regs"]) == (n0 + 1, r0 + 1)
+    run = fo.last_launch["k5"]
+    assert run["engine"] == "regs" and run["groups"] == fo.REG_MR_AXES[n]
+    assert run["blocks_per_sm"] == 1
+    _grid_ok(run)
+    _ok(got, fs._plain_col_pass(psi, prop))
+    buf = psi.clone()
+    assert fo.col_pass_mr(buf, prop, out=buf) is buf       # in place
+    torch.cuda.synchronize()
+    assert torch.equal(buf, got)
+
+
+@pytest.mark.parametrize("n", REG_MR_SIZES)
+def test_col_pass_mr_regs_are_bit_identical(dev, n):
+    psi = _wave(dev, 16, n, n)
+    prop = _prop(dev, n, n)
+    first = fo.col_pass_mr(psi, prop)
+    second = fo.col_pass_mr(psi, prop)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("n", [1023, 513, 1152, 387])
+def test_col_pass_mr_engine_follows_the_plan(dev, n):
+    """``launches["k5_regs"]`` advances and ``last_launch["k5"]["engine"]``
+    reads "regs" on the axes of REG_MR_AXES only; "k5" counts both
+    engines."""
+    psi = _wave(dev, 2, n, 258)
+    regs = n in fo.REG_MR_AXES
+    n0, r0 = fs.launches["k5"], fs.launches["k5_regs"]
+    fo.col_pass_mr(psi, _prop(dev, n, 258))
+    assert fs.launches["k5"] == n0 + 1
+    assert fs.launches["k5_regs"] == r0 + regs
+    assert fo.last_launch["k5"]["engine"] == ("regs" if regs else "tiles")
+    assert isinstance(fo.col_plan(n, 2, 258), fo.RegMrPlan) == regs
+
+
+def test_stem_chain_at_1023_runs_k5_on_registers(dev):
+    """The STEM cell's chain, 16 probes at 1023^2 through 14 slices: every
+    K5 launch on the register engine, and the exit wave against the plain
+    chain."""
+    psi = _wave(dev, 16, 1023, 1023)
+    g = torch.Generator(device=dev).manual_seed(3)
+    v = torch.randn((14, 1023, 1023), device=dev, generator=g) * 50
+    ks = np.fft.fftfreq(1023, 0.1)
+    kw = dict(sigma=SIGMA, lam=LAM, dz=0.4846)
+    before = dict(fs.launches)
+    got = fo.fused_multislice_odd(psi, v, ks, ks, **kw)
+    k5 = fs.launches["k5"] - before["k5"]
+    assert (fs.launches["k4"] - before["k4"], k5) == (14, 13)
+    assert fs.launches["k5_regs"] - before["k5_regs"] == k5
+    _ok(got, fs.fused_multislice_plain(psi, v, ks, ks, **kw))
+
+
 # (nx, ny) of K6's cases: the mixed-radix instantiation on every MR_SIZES
 # axis beside an even (258) or odd (387) one and on a power-of-two axis
 # beside 258; the power-of-two instantiation on every axis from 128 to

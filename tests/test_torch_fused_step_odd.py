@@ -8,6 +8,9 @@ kernels tests/test_fused.py checks in interpret mode. The CUDA kernels are
 held to the plain versions on the card by tests/test_torch_cuda_kernels.py
 and chip_smoke.py."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -187,6 +190,69 @@ def test_col_tile_plan(n, n_probes):
         if n == 1023:
             assert (plan.lanes, plan.threads) == (8, 288)
             assert plan.busy >= 0.9
+
+
+# K5's plan (``col_plan``): the register engine on the axes of
+# REG_MR_AXES, (groups, threads, bytes); the tiles elsewhere
+REG_PLANS = {1023: ((31, 33), 264, 73656), 513: ((19, 27), 216, 36936)}
+
+
+@pytest.mark.parametrize("n", PLAN_SIZES + [513])
+@pytest.mark.parametrize("n_probes", [1, 16, 32])
+@pytest.mark.parametrize("ny", ["n", 393])
+def test_col_plan(n, n_probes, ny):
+    """K5's engine and plan for n or 393 columns: at 1023 the register
+    engine, groups (31, 33), 8 lanes of 33 threads; at 513 groups
+    (19, 27), 8 lanes of 27; every other axis the tile plan."""
+    ny = n if ny == "n" else ny
+    assert set(todd.REG_MR_AXES) == set(REG_PLANS)
+    plan = todd.col_plan(n, n_probes, ny)
+    if n not in REG_PLANS:
+        assert plan == todd.tile_plan(n, n_probes, ny)
+        return
+    assert isinstance(plan, todd.RegMrPlan)
+    assert (plan.groups, plan.threads, plan.smem_bytes) == REG_PLANS[n]
+    assert plan.groups == todd.REG_MR_AXES[n]
+    assert plan.lanes == 8 and plan.threads == max(plan.groups) * 8
+    assert plan.smem_bytes == 8 * (n * plan.lanes + n)
+    assert plan.tiles == n_probes * -(-ny // 8)
+
+
+def test_col_plan_every_kernel_size():
+    """Every axis up to 4096 that dispatch gives K5: the register engine
+    on REG_MR_AXES alone, whose blocks fit an SM; the tile plan on every
+    other axis."""
+    sizes = [n for n in range(2, 4097)
+             if todd.supported_size_mr(n, 16) and todd.kernel_preferred_mr(n)]
+    regs = []
+    for n in sizes:
+        plan = todd.col_plan(n, 16, 393)
+        if not isinstance(plan, todd.RegMrPlan):
+            assert plan == todd.tile_plan(n, 16, 393)
+            continue
+        regs.append(n)
+        assert plan.threads <= 1024
+        assert plan.smem_bytes + tfs.SMEM_BLOCK_RESERVED <= tfs.SMEM_SM
+    assert regs == sorted(todd.REG_MR_AXES)
+
+
+@pytest.mark.parametrize("n", sorted(REG_PLANS))
+def test_reg_mr_axes_match_the_kernel_instantiations(n):
+    """REG_MR_AXES gives the axis its groups (N1, N2): N1 its first stage
+    radix, N2 the product of the others, both odd and at most
+    REG_MR_GROUP; fs_col_pass_mr_reg (csrc/fused_step_odd.cu) launches
+    the axis with its stage radices, and no axis outside REG_MR_AXES."""
+    f = todd.stage_radices(n)
+    n1, n2 = todd.REG_MR_AXES[n]
+    assert (n1, n2) == (f[0], int(np.prod(f[1:])))
+    assert n1 % 2 == n2 % 2 == 1 and max(n1, n2) <= todd.REG_MR_GROUP
+    src = (Path(todd.__file__).parent / "csrc" / "fused_step_odd.cu"
+           ).read_text()
+    body = src[src.index("int fs_col_pass_mr_reg("):]
+    found = dict(re.findall(
+        r"case (\d+):\s*return launch_col_reg<([\d, ]+)>", body))
+    assert sorted(int(m) for m in found) == sorted(todd.REG_MR_AXES)
+    assert [int(r) for r in found[str(n)].split(",")] == f
 
 
 @pytest.mark.parametrize("n", PLAN_SIZES)
