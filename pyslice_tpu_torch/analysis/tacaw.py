@@ -17,8 +17,9 @@ analysis methods reduce |Psi(omega, q)|^2 and return NumPy arrays:
 ``intensity`` is a tensor for device-resident WFData and a NumPy array for
 host WFData, as in the JAX package. A WFData sharded over a (frame, probe)
 mesh (``setup(mesh=...)``) takes the sharded branch: the exit waves are
-traded from frame shards to kx stripes by one all_to_all
-(``parallel.sharded.tacaw_intensity_sharded``), the intensity stays a
+traded from frame shards to kx stripes by all_to_alls on the frame group,
+one a probe chunk (``parallel.sharded.tacaw_intensity_sharded``, chunked
+by ``probe_chunk`` as the unsharded path is), the intensity stays a
 k-sharded DTensor with kx zero-padded to the frame extent, and every
 method reduces it with collectives and returns the replicated result
 (every rank of the mesh must call it). ``intensity`` crops the pad on
@@ -43,7 +44,19 @@ def _time_fft_block(blk: torch.Tensor) -> torch.Tensor:
     return torch.fft.fftshift(torch.fft.fft(blk, dim=1), dim=1).abs() ** 2
 
 
-def time_fft_intensity(wf_layer, chunk_elems: int = 1 << 26):
+# Elements of a probe chunk's block in the time FFT, sharded or not.
+CHUNK_ELEMS = 1 << 26
+
+
+def probe_chunk(per_probe: int, chunk_elems: Optional[int] = None) -> int:
+    """Probes a chunk of the time FFT: as many blocks of ``per_probe``
+    elements as ``chunk_elems`` (``CHUNK_ELEMS`` if None) holds, at least
+    one."""
+    limit = CHUNK_ELEMS if chunk_elems is None else chunk_elems
+    return max(1, int(limit // max(per_probe, 1)))
+
+
+def time_fft_intensity(wf_layer, chunk_elems: int = CHUNK_ELEMS):
     """|fftshift_t(fft_t(wf - mean_t(wf)))|^2 along axis 1 of a (probes,
     time, kx, ky) tensor or array, in probe chunks. A tensor stays on its
     device; a NumPy array is computed on the CPU and returned as NumPy."""
@@ -52,8 +65,7 @@ def time_fft_intensity(wf_layer, chunk_elems: int = 1 << 26):
         wf = torch.from_numpy(np.ascontiguousarray(wf_layer)) if host \
             else wf_layer
         n_probes = wf.shape[0]
-        per_probe = int(np.prod(wf.shape[1:]))
-        chunk = max(1, int(chunk_elems // max(per_probe, 1)))
+        chunk = probe_chunk(int(np.prod(wf.shape[1:])), chunk_elems)
         out = torch.cat([_time_fft_block(wf[i:i + chunk])
                          for i in range(0, n_probes, chunk)], dim=0)
     return out.numpy() if host else out

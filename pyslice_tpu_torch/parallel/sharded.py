@@ -6,8 +6,10 @@ multislice loop for its frames x probes with no communication (the
 reference's serial frame loop, calculators.py:172, becomes the mesh's frame
 axis). The cross-frame dependency appears only at the TACAW time FFT: every
 (probe, kx, ky) pixel needs all frames. ``tacaw_intensity_sharded`` trades
-the frame shards for kx stripes with one ``all_to_all_single`` on the frame
-group, then transforms along the now-complete time axis locally.
+the frame shards for kx stripes with ``all_to_all_single`` on the frame
+group, then transforms along the now-complete time axis locally, one probe
+chunk at a time, so that a rank holds its waves, the intensity and one
+chunk's temporaries rather than copies of the whole block.
 Reductions finish with ``all_reduce`` over the axis they sum.
 
 JAX's ``shard_map`` blocks become plain functions of the rank's local
@@ -30,14 +32,17 @@ all_to_all_single take CUDA tensors as they are).
 Tracing (``utils.profiling``): each collective runs in a span of its own
 (``collective.all_to_all``, ``.all_reduce``, ``.all_gather``), and the
 frame -> kx trade with its time FFT in ``analysis.time_fft``. While a
-profiler records, ``STATS["all_to_all_s"]`` also adds the all_to_all's
+profiler records, ``STATS["all_to_all_s"]`` also adds each all_to_all's
 seconds between two synchronizes; an untraced run neither synchronizes
-there nor counts.
+there nor counts. ``STATS["all_to_all_calls"]`` and
+``["all_to_all_bytes"]`` count every exchange and the bytes this rank
+hands to it, traced or not (they need no synchronize).
 """
 
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,9 +53,10 @@ from ..engine.pipeline import SimSpec, simulate_frames_into
 from ..utils.profiling import span
 from .mesh import FRAME_AXIS, PROBE_AXIS, coord, extent
 
-# Seconds in the frame -> kx all_to_all, between two synchronizes on
-# CUDA, counted only while a profiler records (see above).
-STATS = {"all_to_all_s": 0.0}
+# Seconds in the frame -> kx all_to_alls, between two synchronizes on
+# CUDA, counted only while a profiler records; the exchanges and the bytes
+# this rank sent, counted always (see above).
+STATS = {"all_to_all_s": 0.0, "all_to_all_calls": 0, "all_to_all_bytes": 0}
 
 
 def is_sharded(x) -> bool:
@@ -116,6 +122,8 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
         t = t.contiguous()
         out = torch.empty_like(t)
         dist.all_to_all_single(_real(out), _real(t), group=group)
+    STATS["all_to_all_calls"] += 1
+    STATS["all_to_all_bytes"] += t.numel() * t.element_size()
     return out
 
 
@@ -203,13 +211,17 @@ def _sync(t: torch.Tensor) -> None:
 
 
 def tacaw_intensity_sharded(wf, mesh, layer_index: int = -1,
-                            crop: bool = True):
+                            crop: bool = True,
+                            chunk_elems: Optional[int] = None):
     """Frame-sharded exit waves -> frequency intensity, k-sharded.
 
     Args:
         wf: (n_probes, n_frames, nx, ny, n_layers) DTensor from
             ``run_sharded``.
         mesh: the same mesh.
+        chunk_elems: elements of a probe chunk's received block
+            (``analysis.tacaw.probe_chunk``; None: the unsharded path's
+            ``CHUNK_ELEMS``).
 
     Returns:
         (n_probes, n_freq, nx_pad, ny) real DTensor, the probe axis
@@ -219,8 +231,12 @@ def tacaw_intensity_sharded(wf, mesh, layer_index: int = -1,
         extent (odd grids, int(l/s)+1); ``crop`` drops the pad, leaving
         stripes of torch.chunk's uneven sizes. Keep crop=False for further
         sharded reductions: the pad rows are exact zeros.
+
+    The rank's probes go through in chunks, one all_to_all each: a chunk
+    is padded, exchanged, transformed and its |.|^2 written into its rows
+    of the one output, so no temporary is larger than a chunk's block.
     """
-    from ..analysis.tacaw import _time_fft_block
+    from ..analysis.tacaw import _time_fft_block, probe_chunk
     n_layers = wf.shape[-1]
     layer_index = layer_index % n_layers
     _check_divisible(mesh, n_frames=wf.shape[1], n_probes=wf.shape[0])
@@ -228,25 +244,33 @@ def tacaw_intensity_sharded(wf, mesh, layer_index: int = -1,
     f_ext = extent(mesh, FRAME_AXIS)
     pad = (-nx) % f_ext
     stripe = (nx + pad) // f_ext
+    group = mesh.get_group(FRAME_AXIS)
     with span("analysis.time_fft") as traced:
         x = local_of(wf)[..., layer_index]        # (p_loc, f_loc, nx, ny)
-        if pad:
-            x = torch.nn.functional.pad(x, (0, 0, 0, pad))
         p_loc, f_loc, _, ny = x.shape
-        # kx stripes to dim 0; block j goes to frame rank j, and block j of
-        # the result holds frame rank j's frames of this rank's stripe.
-        send = x.reshape(p_loc, f_loc, f_ext, stripe, ny)
-        send = send.permute(2, 0, 1, 3, 4)
-        if traced is not None:
-            _sync(x)
-            t0 = time.perf_counter()
-        recv = all_to_all(send, mesh.get_group(FRAME_AXIS))
-        if traced is not None:
-            _sync(recv)
-            STATS["all_to_all_s"] += time.perf_counter() - t0
-        x = recv.permute(1, 0, 2, 3, 4)
-        x = x.reshape(p_loc, f_ext * f_loc, stripe, ny)
-        out = _wrap(_time_fft_block(x), mesh, 2, 0,
+        n_t = f_ext * f_loc
+        out = torch.empty((p_loc, n_t, stripe, ny), dtype=x.real.dtype,
+                          device=x.device)
+        step = probe_chunk(n_t * stripe * ny, chunk_elems)
+        for i in range(0, p_loc, step):
+            blk = x[i:i + step]
+            c = blk.shape[0]
+            if pad:
+                blk = torch.nn.functional.pad(blk, (0, 0, 0, pad))
+            # kx stripes to dim 0; block j goes to frame rank j, and block
+            # j of the result holds frame rank j's frames of this stripe.
+            send = blk.reshape(c, f_loc, f_ext, stripe, ny)
+            send = send.permute(2, 0, 1, 3, 4)
+            if traced is not None:
+                _sync(x)
+                t0 = time.perf_counter()
+            recv = all_to_all(send, group)
+            if traced is not None:
+                _sync(recv)
+                STATS["all_to_all_s"] += time.perf_counter() - t0
+            recv = recv.transpose(0, 1).reshape(c, n_t, stripe, ny)
+            out[i:i + c] = _time_fft_block(recv)
+        out = _wrap(out, mesh, 2, 0,
                     shape=(wf.shape[0], wf.shape[1], nx + pad, ny))
     return crop_kx(out, mesh, nx) if pad and crop else out
 
