@@ -339,13 +339,15 @@ def launches_of(fn):
 
 def want_counts(**n):
     """Launch counts with every kernel at 0 but those given. The phases
-    that count launches run K5 only at 1023, which takes its register
-    engine, so "k5_regs" follows "k5" unless given."""
+    that count launches run K4 and K5 only at 1023, which takes their
+    register engine, so "k4_regs" and "k5_regs" follow "k4" and "k5"
+    unless given."""
     from pyslice_tpu_torch.ops import fused_step as fs
     want = dict.fromkeys(fs.launches, 0)
     want.update(n)
-    if "k5_regs" not in n:
-        want["k5_regs"] = want["k5"]
+    for k in ("k4", "k5"):
+        if f"{k}_regs" not in n:
+            want[f"{k}_regs"] = want[k]
     return want
 
 
@@ -459,9 +461,9 @@ def records_for(errs, timings, bounds, shape):
 
 def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES, n_tiles=1152):
     """Phase 4: K4, K5 at P x n^2 and K6 at 1 x n^2 and 1 x 1024^2 against
-    their plain versions; K5's tile engine also at P and 2P x n_tiles^2,
-    an axis the register engine does not take. Returns the JSON records
-    keyed by kernel."""
+    their plain versions; K4's and K5's tile engine also at n_tiles^2 (K4
+    at P planes, K5 at P and 2P), an axis the register engine does not
+    take. Returns the JSON records keyed by kernel."""
     import numpy as np
     import torch
     from pyslice_tpu_torch.core.constants import (interaction_parameter,
@@ -531,8 +533,9 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES, n_tiles=1152):
     for k, plan in plans.items():
         print(f"    {k.upper()} {plan.get('engine', 'tiles')} plan and "
               f"persistent grid at {P}x{n}^2: {plan}")
-    require(plans["k5"]["engine"] == "regs",
-            f"K5 at {n} ran {plans['k5']['engine']}, not its register engine")
+    for k, plan in plans.items():
+        require(plan.get("engine") == "regs", f"{k.upper()} at {n} ran "
+                f"{plan.get('engine')}, not its register engine")
     del buf
     # K5 on 2P planes: the adjoint chain's pair stream
     buf = torch.randn((2 * P, n, n), dtype=torch.complex64, device=dev,
@@ -547,6 +550,7 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES, n_tiles=1152):
           f"{k5_pairs['plain_ms']:.4f} ms, bound {k5_pairs['bound_ms']:.4f} "
           f"ms; plan and grid {fo.last_launch['k5']}")
     del buf
+    k4_tiles = k4_tile_check(dev, g, P, n_tiles)
     k5_tiles = k5_tile_check(dev, g, P, n_tiles, lam)
     barrier_ms = {}
     for key, (p1, tstack, pm) in loops.items():
@@ -565,6 +569,7 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES, n_tiles=1152):
     records = records_for({k: errs[k] for k in ("k4", "k5")}, timings,
                           bounds, f"{P}x{n}^2")
     records["k5"][f"at_{2 * P}_planes"] = k5_pairs
+    records["k4"][f"tiles_at_{n_tiles}"] = k4_tiles
     records["k5"][f"tiles_at_{n_tiles}"] = k5_tiles
     for k, plan in plans.items():
         records[k]["plan"] = plan
@@ -577,6 +582,47 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES, n_tiles=1152):
     for key in loops:
         records[key].update(plan=k6_plans[key], barrier_ms=barrier_ms[key])
     return records
+
+
+def k4_tile_check(dev, g, P, n):
+    """K4's tile engine at P x n^2 (an axis outside REG_MR_AXES) against
+    its plain version in every mode, with the complex plane and the phase:
+    every launch on the tiles ("k4_regs" 0), then timed in ``mid`` with the
+    plane. Returns its record: error, ms, plain_ms, bound_ms, plan and
+    grid."""
+    import torch
+    from pyslice_tpu_torch.ops import fused_step as fs
+    from pyslice_tpu_torch.ops import fused_step_odd as fo
+
+    require(not isinstance(fo.row_plan(n, P, n), fo.RegMrPlan),
+            f"K4 at {n} plans the register engine, not the tiles")
+    buf = torch.randn((P, n, n), dtype=torch.complex64, device=dev,
+                      generator=g)
+    sv = torch.randn((n, n), device=dev, generator=g) * 20.0
+    t = torch.complex(torch.cos(sv), torch.sin(sv))
+    err = 0.0
+    for mode in fs.ROW_MODES:
+        for label, tt in (("planes", t), ("phase", sv)):
+            got, counts, _ = launches_of(
+                lambda: fo.row_pass_mr(mode, buf, tt))
+            require(counts == want_counts(k4=1, k4_regs=0),
+                    f"K4 tiles {mode} {label} at {P}x{n}^2: launches "
+                    f"{counts}")
+            engine = fo.last_launch["k4"].get("engine")
+            require(engine == "tiles",
+                    f"K4 at {P}x{n}^2 ran {engine}, not the tiles")
+            err = max(err, check(f"K4 tiles {mode:5s} {label:6s} {P}x{n}^2",
+                                 got, fs._plain_row_pass(mode, buf, tt)))
+            del got
+    rec = {"shape": f"{P}x{n}^2", "max_abs_err": err,
+           "ms": cuda_ms(lambda: fo.row_pass_mr("mid", buf, t, out=buf)),
+           "plain_ms": cuda_ms(lambda: fs._plain_row_pass("mid", buf, t)),
+           "bound_ms": kernel_bound("pass", P, n)["bound_ms"],
+           "plan": dict(fo.last_launch["k4"])}
+    print(f"  K4 tiles at {P}x{n}^2: {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms; plan "
+          f"and grid {rec['plan']}")
+    return rec
 
 
 def k5_tile_check(dev, g, P, n, lam):
@@ -952,7 +998,8 @@ def step_want(keys, nz):
     row, col, bwd = keys
     want = dict.fromkeys(fs.launches, 0)
     want.update({row: nz + 1, col: 2 * (nz - 1), bwd: nz - 1})
-    want["k5_regs"] = want["k5"]        # K5 at 1023: the register engine
+    for k in ("k4", "k5"):             # K4, K5 at 1023: the register engine
+        want[f"{k}_regs"] = want[k]
     return want
 
 

@@ -1,6 +1,7 @@
-// The register-resident mixed-radix FFT engine of K5 (fused_step_odd.cu
-// col_pass_mr_reg_kernel): fft_regs.cuh's design carried to an axis that
-// is no power of two. The axis n = N1 x N2 splits into two groups, N1 its
+// The register-resident mixed-radix FFT engine of K5 and K4
+// (fused_step_odd.cu col_pass_mr_reg_kernel, row_pass_mr_reg_kernel):
+// fft_regs.cuh's design carried to an axis that is no power of two. The
+// axis n = N1 x N2 splits into two groups, N1 its
 // first Stockham stage radix (fft_mixed.cuh make_plan) and N2 the product
 // of the others, each at most kMrE and odd (1023 = 31 x 33, 33 = 11 x 3).
 // A transform takes T = max(N1, N2) threads, each holding at most kMrE
@@ -37,8 +38,8 @@
 // The exchange is a caller's functor (element e of the transform to a slot
 // of shared memory): K5 keeps the tile's lanes, its columns, side by side
 // (slot e L + c for lane c of L); with odd N1 and N2 a half warp's 8-byte
-// accesses then fall on distinct banks at every step. K4's row form can
-// take the same functions with another map.
+// accesses then fall on distinct banks at every step. K4 keeps its rows
+// one after another (slot c n + e), its threads walking a row.
 
 #pragma once
 

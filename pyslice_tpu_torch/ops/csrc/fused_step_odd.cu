@@ -66,7 +66,12 @@
 // each, a warp's 32 filling 32 neighbouring slots. Its time is in PERF.md
 // beside the one-block-a-tile K4 it replaced (0.51 ms at 16 x 1023^2,
 // whose synchronous loads and stores, fenced by barriers, took 0.22 ms
-// with no transform at all).
+// with no transform at all). On the axes of REG_MR_AXES K4 runs instead on
+// the register engine of fft_regs_mr.cuh (row_pass_mr_reg_kernel, rows
+// of n = N1 x N2): in mid the inverse leaves each thread holding the
+// positions from which the forward's first stage starts, so x t / n is
+// taken in registers between the two transforms, two exchanges a row:
+// 0.22 ms at 16 x 1023^2 against the tiles' 0.35 (PERF.md).
 //
 // No fast-math (sincosf for the phase mode, whose arguments run to tens of
 // radians). Plain C interface for ctypes: each function launches on the
@@ -228,6 +233,140 @@ int launch_col_reg(float2* out, const float2* in, const float2* prop,
   return (int)cudaGetLastError();
 }
 
+// K4 on the register engine, for the axes of REG_MR_AXES (ny = N1 x N2).
+// Tile u is rows (u % tpp) << kMrLogc .. of probe u / tpp; thread tid is
+// the tile's row c = tid / T and k = tid mod T of the T a transform, so a
+// warp's threads walk neighbouring elements of a row (a row is contiguous:
+// the reverse of K5's lane-fastest map). The exchange keeps the rows one
+// after another (slot c n + e): with n, N1 and N2 odd, a half warp's
+// 8-byte accesses fall on distinct banks at every step but where it spans
+// two rows. By mode:
+//   first  thread k < N2 loads x[k + N2 m] and t there, x t, the forward
+//          (one exchange); thread j < N1 stores X[j + N1 q]
+//   mid    thread j < N1 loads X[j + N1 r], the inverse's radix-N2 group,
+//          the exchange; thread k < N2 then holds x[k + N2 q], the forward's
+//          first stage's inputs, takes x t / n in registers, and the forward
+//          follows (two exchanges through one buffer, four barriers a tile);
+//          thread j stores X[j + N1 q], the positions it loaded
+//   last   the inverse, x t / n, thread k stores x[k + N2 q] (one exchange)
+//   only   thread k < N2: x t at x[k + N2 m], no exchange
+// t is the complex plane or, with kPhase, sv the phase (sincosf where the
+// factor is used). Its loads are issued before the inverse's second stage
+// (or with the wave's, in first and only): with one block an SM nothing
+// else on the SM would hide them. A row past nx (the last tile) reads row
+// nx - 1 and stores nothing. `out` may equal `in`: a row is read whole
+// before any of it is written.
+template <bool kPhase, int R1, int... R2>
+__global__ void __launch_bounds__(MrAxis<R1, R2...>::T << kMrLogc, 1)
+row_pass_mr_reg_kernel(float2* out, const float2* in,
+                       const float2* __restrict__ t,
+                       const float* __restrict__ sv,
+                       const float2* __restrict__ tw, int nx, int tpp,
+                       int n_tiles, int mode) {
+  using Ax = MrAxis<R1, R2...>;
+  constexpr int n = Ax::n;
+  constexpr int N1 = Ax::N1;
+  constexpr int N2 = Ax::N2;
+  extern __shared__ __align__(16) float2 smem16[];
+  float2* tws = smem16 + (n << kMrLogc);     // after the exchange buffer
+  mr_table<Ax>(tws, tw);
+  const int c = threadIdx.x / Ax::T;
+  const int k = threadIdx.x - c * Ax::T;
+  float2* const xr = smem16 + c * n;
+  const auto xs = [&](int e) { return xr + e; };
+  const bool inv = mode == kMid || mode == kLast;
+  const bool fwd = mode == kFirst || mode == kMid;
+  const float scale = inv ? 1.0f / (float)n : 1.0f;
+  __syncthreads();
+  for (int u = blockIdx.x; u < n_tiles; u += gridDim.x) {
+    const int x = ((u % tpp) << kMrLogc) + c;
+    const int xc = min(x, nx - 1);
+    const size_t row = ((size_t)(u / tpp) * nx + xc) * n;
+    const float2* src = in + row;
+    float2* dst = out + row;
+    float2 v[kMrE];
+    if (inv) {
+      if (k < N1) {
+#pragma unroll
+        for (int r = 0; r < N2; ++r) v[r] = src[k + N1 * r];
+        Ax::template group<true>(v);
+        mr_inv_put<Ax>(v, k, xs);
+      }
+      __syncthreads();
+    }
+    if (k < N2) {
+      // t at x[k + N2 m], m < N1: the plane's values, or the phase's
+      float2 f[N1];
+      float p[N1];
+      const size_t tk = (size_t)xc * n + k;
+#pragma unroll
+      for (int m = 0; m < N1; ++m) {
+        if constexpr (kPhase) {
+          p[m] = __ldg(&sv[tk + N2 * m]);
+        } else {
+          f[m] = __ldg(&t[tk + N2 * m]);
+        }
+      }
+      if (inv) {
+        mr_inv_second<Ax>(v, k, xs, tws, [&](int m, float2 y) { v[m] = y; });
+      } else {
+#pragma unroll
+        for (int m = 0; m < N1; ++m) v[m] = src[k + N2 * m];
+      }
+#pragma unroll
+      for (int m = 0; m < N1; ++m) {
+        float2 w;
+        if constexpr (kPhase) {
+          sincosf(p[m], &w.y, &w.x);
+        } else {
+          w = f[m];
+        }
+        v[m] = cscale(cmul(v[m], w), scale);
+      }
+      if (!fwd && x < nx) {
+#pragma unroll
+        for (int m = 0; m < N1; ++m) dst[k + N2 * m] = v[m];
+      }
+    }
+    if (inv) __syncthreads();    // the inverse's reads are done
+    if (!fwd) continue;
+    if (k < N2) mr_fwd_first<Ax>(v, k, xs);
+    __syncthreads();
+    if (k < N1) {
+      mr_fwd_second<Ax>(v, k, xs, tws);
+      if (x < nx) {
+#pragma unroll
+        for (int q = 0; q < N2; ++q) dst[k + N1 * q] = v[q];
+      }
+    }
+    __syncthreads();    // the forward's reads are done
+  }
+}
+
+// Host: launch K4's register kernel on the axis R1 | R2... (see
+// fs_row_pass_mr_reg).
+template <int R1, int... R2>
+int launch_row_reg(float2* out, const float2* in, const float2* t,
+                   const float* sv, const float2* tw, int n_probes, int nx,
+                   int mode, int logc, int threads, int* info,
+                   cudaStream_t stream) {
+  using Ax = MrAxis<R1, R2...>;
+  if (logc != kMrLogc || threads != Ax::T << kMrLogc || mode < kFirst ||
+      mode > kOnly) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const auto kernel = sv != nullptr ? row_pass_mr_reg_kernel<true, R1, R2...>
+                                    : row_pass_mr_reg_kernel<false, R1, R2...>;
+  const size_t smem = mr_reg_smem(Ax::n, kMrLogc);
+  const int tpp = (nx + (1 << kMrLogc) - 1) >> kMrLogc;
+  const long tiles = (long)n_probes * tpp;
+  const cudaError_t err = persistent_grid(kernel, threads, smem, tiles, info);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)info[0], threads, smem, stream>>>(out, in, t, sv, tw, nx,
+                                                       tpp, (int)tiles, mode);
+  return (int)cudaGetLastError();
+}
+
 // Host: the shared memory of a tile of 2^logc lanes of n and the table.
 size_t tile_smem(int n, int logc) {
   return (kBuffers * ((size_t)n << logc) + n) * sizeof(float2);
@@ -308,6 +447,32 @@ int fs_col_pass_mr_reg(void* out, const void* in, const void* prop,
     case 513:
       return launch_col_reg<19, 3, 3, 3>(o, i, p, w, n_probes, ny, logc,
                                          threads, info, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4 on the register engine, for an axis ny of REG_MR_AXES
+// (ops/fused_step_odd.py row_plan): the arguments of fs_row_pass_mr, logc
+// and threads those of the axis's instantiation below; tw the full
+// twiddle table of ny. Any other axis, plan or mode is refused
+// (cudaErrorInvalidValue).
+int fs_row_pass_mr_reg(void* out, const void* in, const void* t,
+                       const void* sv, const void* tw, int n_probes, int nx,
+                       int ny, int mode, int logc, int threads, int* info,
+                       void* stream) {
+  float2* o = (float2*)out;
+  const float2* i = (const float2*)in;
+  const float2* tp = (const float2*)t;
+  const float* ph = (const float*)sv;
+  const float2* w = (const float2*)tw;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (ny) {
+    case 1023:
+      return launch_row_reg<31, 11, 3>(o, i, tp, ph, w, n_probes, nx, mode,
+                                       logc, threads, info, s);
+    case 513:
+      return launch_row_reg<19, 3, 3, 3>(o, i, tp, ph, w, n_probes, nx, mode,
+                                         logc, threads, info, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -60,10 +60,10 @@ from ..core.dtypes import SINGLE, as_real
 # Launches of each kernel since the last reset (the wrappers add one per
 # launch; nothing else touches them): A, B, C here, K4 and K5 in
 # ops.fused_step_odd, K6 in ops.fused_step_resident, K7 and K8 in
-# ops.fused_step_adjoint. "k5" counts every K5 launch, "k5_regs" those of
-# them on the register engine.
-launches = {"a": 0, "b": 0, "c": 0, "k4": 0, "k5": 0, "k5_regs": 0, "k6": 0,
-            "k7": 0, "k8": 0}
+# ops.fused_step_adjoint. "k4" and "k5" count every K4 and K5 launch,
+# "k4_regs" and "k5_regs" those of them on the register engine.
+launches = {"a": 0, "b": 0, "c": 0, "k4": 0, "k4_regs": 0, "k5": 0,
+            "k5_regs": 0, "k6": 0, "k7": 0, "k8": 0}
 
 # Above this many bytes for the (nz, nx, ny) complex64 transmission stack,
 # kernel A takes sigma*V and evaluates cos/sin itself: half the memory, at
@@ -160,6 +160,7 @@ _ARGTYPES = {
     "fs_col_pass": "ppppiiiipp",
     "fs_kconvert": "pppiiip",
     "fs_row_pass_mr": "pppppiiiiiipp",
+    "fs_row_pass_mr_reg": "pppppiiiiiipp",
     "fs_col_pass_mr": "ppppiiiiipp",
     "fs_col_pass_mr_reg": "ppppiiiiipp",
     "fs_resident_loop": "ppppppppiiiiiiiiiipp",

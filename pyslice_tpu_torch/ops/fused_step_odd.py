@@ -22,19 +22,20 @@ limits of Pallas on the TPU and are not ported. There is no fused k-space
 conversion on this chain (the JAX package has none either):
 ``engine.pipeline`` converts its exit wave with ``torch.fft``.
 
-K5 has a second engine (``csrc/fft_regs_mr.cuh``): on the axes of
-``REG_MR_AXES`` (1023 = 31 | 11 x 3, 513 = 19 | 3 x 3 x 3), whose stage
+K4 and K5 have a second engine (``csrc/fft_regs_mr.cuh``): on the axes
+of ``REG_MR_AXES`` (1023 = 31 | 11 x 3, 513 = 19 | 3 x 3 x 3), whose stage
 radices split into two odd groups of at most 33 values, each thread keeps
-its values of a column in registers from its load to its store, with one
-exchange through shared memory a transform (B's design on an odd axis).
-``col_plan`` picks the engine from the shape alone.
+its values of a row (K4) or a column (K5) in registers from its load to its
+store, with one exchange through shared memory a transform (A's and B's
+design on an odd axis). ``row_plan`` and ``col_plan`` pick the engine from
+the shape alone.
 
 Each wrapper takes its plain ``torch.fft`` version (kernel A's and B's) for
 a tensor on the CPU, and for a CUDA tensor launches its kernel or raises.
 ``launches["k4"]`` / ``launches["k5"]`` count the kernel launches,
-``launches["k5_regs"]`` those of K5 on the register engine;
-``last_launch["k4"]`` / ``last_launch["k5"]`` hold each one's last plan and
-persistent grid, K5's with its ``engine`` ("regs" or "tiles").
+``launches["k4_regs"]`` / ``launches["k5_regs"]`` those on the register
+engine; ``last_launch["k4"]`` / ``last_launch["k5"]`` hold each one's last
+plan and persistent grid, with its ``engine`` ("regs" or "tiles").
 
 Sizes (``supported_size_mr``): every axis the JAX package gives a kernel,
 up to 4096 (the engine's shared-memory limit): the JAX odd kernels' rule
@@ -257,16 +258,17 @@ def pair_tile_plan(n: int, nx: int) -> TilePlan:
                     shared_table=shared)
 
 
-# K5's register engine (csrc/fft_regs_mr.cuh, the kernel
-# col_pass_mr_reg_kernel of csrc/fused_step_odd.cu): an axis n = N1 x N2,
-# N1 its first stage radix and N2 the product of the others, both odd and
-# at most REG_MR_GROUP; a transform takes max(N1, N2) threads, each holding
-# a group's values in registers, and one exchange through shared memory,
-# REG_MR_LOGC lanes (columns) a block, one block an SM. REG_MR_AXES: the
-# axes the kernel is built for (the cases of fs_col_pass_mr_reg) and their
-# groups (N1, N2), each timed faster than the tiles in turns with them
-# (scripts/time_col_pass_mr.py, PERF.md); every other axis keeps the
-# tiles.
+# The register engine of K4 and K5 (csrc/fft_regs_mr.cuh, the kernels
+# row_pass_mr_reg_kernel and col_pass_mr_reg_kernel of
+# csrc/fused_step_odd.cu): an axis n = N1 x N2, N1 its first stage radix
+# and N2 the product of the others, both odd and at most REG_MR_GROUP; a
+# transform takes max(N1, N2) threads, each holding a group's values in
+# registers, and one exchange through shared memory, REG_MR_LOGC lanes
+# (rows or columns) a block, one block an SM at 1023. REG_MR_AXES: the
+# axes the kernels are built for (the cases of fs_row_pass_mr_reg and
+# fs_col_pass_mr_reg) and their groups (N1, N2), each timed faster than
+# the tiles in turns with them (scripts/time_col_pass_mr.py, PERF.md);
+# every other axis keeps the tiles.
 REG_MR_GROUP = 33
 REG_MR_LOGC = 3
 REG_MR_AXES = {1023: (31, 33), 513: (19, 27)}
@@ -275,7 +277,7 @@ REG_MR_AXES = {1023: (31, 33), 513: (19, 27)}
 @dataclasses.dataclass(frozen=True)
 class RegMrPlan:
     groups: tuple       # (N1, N2)
-    logc: int           # 2^logc lanes (columns) a block
+    logc: int           # 2^logc lanes (rows or columns) a block
     threads: int        # a block: max(N1, N2) threads a lane
     smem_bytes: int     # the exchange buffer of the lanes and the table
     tiles: int          # (probe, tile) pairs the persistent grid walks
@@ -286,8 +288,9 @@ class RegMrPlan:
 
 
 def reg_mr_smem(n: int, logc: int) -> int:
-    """The shared memory of K5's register kernel: one exchange buffer of
-    2^logc lanes of n, and the n-entry table of stage twiddles."""
+    """The shared memory of K4's and K5's register kernels: one exchange
+    buffer of 2^logc lanes of n, and the n-entry table of stage
+    twiddles."""
     return 8 * ((n << logc) + n)
 
 
@@ -306,15 +309,31 @@ def col_plan(n: int, n_probes: int, lanes: int):
                      tiles=n_probes * -(-lanes // (1 << REG_MR_LOGC)))
 
 
-def record_launch(kernel: str, plan: TilePlan, info) -> None:
+def row_plan(n: int, n_probes: int, rows: int):
+    """K4's plan on transforms of length n (ny) for n_probes x ``rows``
+    (nx rows): the register engine's (``RegMrPlan``) on the axes of
+    REG_MR_AXES, the tiles' (``tile_plan``) on every other; it reads only
+    the shape, and a block of rows takes what a block of columns does
+    (``col_plan``). At 1023: groups (31, 33), 8 rows of 33 threads (264),
+    73,656 bytes."""
+    return col_plan(n, n_probes, rows)
+
+
+def record_launch(kernel: str, plan, info) -> None:
     """Keep a launch's plan and grid (``info``: grid, blocks per SM, SMs,
-    shared memory bytes) in ``last_launch[kernel]``."""
+    shared memory bytes) in ``last_launch[kernel]``, with its engine
+    ("regs" for a ``RegMrPlan``, else "tiles")."""
     rec = last_launch[kernel]
     rec.clear()
-    rec.update(lanes=plan.lanes, threads=plan.threads, busy=plan.busy,
-               tiles=plan.tiles,
-               table="shared" if plan.shared_table else "device")
+    regs = isinstance(plan, RegMrPlan)
+    rec.update(lanes=plan.lanes, threads=plan.threads, tiles=plan.tiles)
+    if regs:
+        rec.update(groups=plan.groups)
+    else:
+        rec.update(busy=plan.busy,
+                   table="shared" if plan.shared_table else "device")
     rec.update(zip(("grid", "blocks_per_sm", "sms", "smem_bytes"), info))
+    rec["engine"] = "regs" if regs else "tiles"
 
 
 # --- wrappers ------------------------------------------------------------------
@@ -322,9 +341,10 @@ def record_launch(kernel: str, plan: TilePlan, info) -> None:
 
 def row_pass_mr(mode: str, state: torch.Tensor, t: torch.Tensor,
                 out=None) -> torch.Tensor:
-    """K4 on a (P, nx, ny) complex64 wave: kernel A's ``mode`` with the
-    mixed-radix engine. ``t``: the (nx, ny) complex64 transmission plane,
-    or the float32 phase sigma*V. ``out`` may be ``state`` (in place)."""
+    """K4 on a (P, nx, ny) complex64 wave: kernel A's ``mode`` on the
+    engine of ``row_plan`` (registers or tiles). ``t``: the (nx, ny)
+    complex64 transmission plane, or the float32 phase sigma*V. ``out`` may
+    be ``state`` (in place)."""
     if mode not in ROW_MODES:
         raise ValueError(f"row_pass_mr mode must be one of {list(ROW_MODES)}")
     if state.device.type == "cpu":
@@ -336,11 +356,13 @@ def row_pass_mr(mode: str, state: torch.Tensor, t: torch.Tensor,
     _check_cuda(t, "t", (nx, ny), torch.float32 if phase else torch.complex64,
                 state.device)
     out = _out_for(state, out)
-    plan = tile_plan(ny, n_probes, nx)
+    plan = row_plan(ny, n_probes, nx)
+    regs = isinstance(plan, RegMrPlan)
     info = (ctypes.c_int * 4)()
     lib = build().libs["fused_step_odd"]
+    launch = lib.fs_row_pass_mr_reg if regs else lib.fs_row_pass_mr
     with torch.cuda.device(state.device):
-        err = lib.fs_row_pass_mr(
+        err = launch(
             out.data_ptr(), state.data_ptr(),
             None if phase else t.data_ptr(), t.data_ptr() if phase else None,
             _twiddles(ny, state.device, full=True).data_ptr(), n_probes, nx,
@@ -349,6 +371,7 @@ def row_pass_mr(mode: str, state: torch.Tensor, t: torch.Tensor,
     record_launch("k4", plan, info)
     _raise_on(err, "row_pass_mr (K4)")
     launches["k4"] += 1
+    launches["k4_regs"] += regs
     return out
 
 
@@ -375,15 +398,7 @@ def col_pass_mr(state: torch.Tensor, prop: torch.Tensor,
             _twiddles(nx, state.device, full=True).data_ptr(), n_probes, nx,
             ny, plan.logc, plan.threads, ctypes.addressof(info),
             torch.cuda.current_stream().cuda_stream)
-    if regs:
-        rec = last_launch["k5"]
-        rec.clear()
-        rec.update(lanes=plan.lanes, threads=plan.threads,
-                   groups=plan.groups, tiles=plan.tiles)
-        rec.update(zip(("grid", "blocks_per_sm", "sms", "smem_bytes"), info))
-    else:
-        record_launch("k5", plan, info)
-    last_launch["k5"]["engine"] = "regs" if regs else "tiles"
+    record_launch("k5", plan, info)
     _raise_on(err, "col_pass_mr (K5)")
     launches["k5"] += 1
     launches["k5_regs"] += regs

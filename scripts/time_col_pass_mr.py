@@ -217,10 +217,11 @@ def main():
                     fo, "last_launch", {})).get(kernel, {}))
             entry = {"ms": ms, "rounds_ms": ts, "max_rel": errs[0][0],
                      "residual": errs[0][1], "plan": plan}
-            form = (f"{args.mode}{' phase' if args.phase else ''} "
+            engine = (f"{plan.get('engine', 'tiles')} engine "
+                      if kernel in ("k4", "k5") else "")
+            form = (f"{engine}{args.mode}{' phase' if args.phase else ''} "
                     if kernel in ("a", "k4", "k7", "k8") else
-                    f"{plan.get('engine', 'tiles')} engine "
-                    if kernel == "k5" else
+                    engine if kernel == "k5" else
                     f"{'phase ' if args.phase else ''}"
                     f"{'kspace ' if args.kspace else ''}"
                     if kernel == "k6" else "")

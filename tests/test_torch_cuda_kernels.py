@@ -264,8 +264,8 @@ def test_col_pass_mr_matches_plain(dev, n, P):
 
 
 POW2_SIZES = [128, 256, 512, 1024, 2048, 4096]
-# K5's register engine (fo.REG_MR_AXES): 1023 = 31 | 11 x 3, 513 = 19 |
-# 3 x 3 x 3
+# K4's and K5's register engine (fo.REG_MR_AXES): 1023 = 31 | 11 x 3,
+# 513 = 19 | 3 x 3 x 3
 REG_MR_SIZES = [1023, 513]
 
 
@@ -317,10 +317,61 @@ def test_col_pass_mr_engine_follows_the_plan(dev, n):
     assert isinstance(fo.col_plan(n, 2, 258), fo.RegMrPlan) == regs
 
 
+@pytest.mark.parametrize("n", REG_MR_SIZES)
+@pytest.mark.parametrize("P", [1, 16, 32])
+@pytest.mark.parametrize("mode", ["first", "mid", "last", "only"])
+@pytest.mark.parametrize("phase", [False, True])
+def test_row_pass_mr_regs_match_plain(dev, n, P, mode, phase):
+    """K4 on its register engine, P x n x n (n rows: a ragged last tile,
+    1023 = 127 * 8 + 7, 513 = 64 * 8 + 1), with the phase or the complex
+    plane, against its plain version, and in place the same bits."""
+    psi = _wave(dev, P, n, n)
+    sv = _phase(dev, n, n)
+    t = sv if phase else torch.complex(torch.cos(sv), torch.sin(sv))
+    n0, r0 = fs.launches["k4"], fs.launches["k4_regs"]
+    got = fo.row_pass_mr(mode, psi, t)
+    assert (fs.launches["k4"], fs.launches["k4_regs"]) == (n0 + 1, r0 + 1)
+    run = fo.last_launch["k4"]
+    assert run["engine"] == "regs" and run["groups"] == fo.REG_MR_AXES[n]
+    _grid_ok(run)
+    _ok(got, fs._plain_row_pass(mode, psi, t))
+    buf = psi.clone()
+    assert fo.row_pass_mr(mode, buf, t, out=buf) is buf       # in place
+    torch.cuda.synchronize()
+    assert torch.equal(buf, got)
+
+
+@pytest.mark.parametrize("n", REG_MR_SIZES)
+@pytest.mark.parametrize("phase", [False, True])
+def test_row_pass_mr_regs_are_bit_identical(dev, n, phase):
+    psi = _wave(dev, 16, n, n)
+    sv = _phase(dev, n, n)
+    t = sv if phase else torch.complex(torch.cos(sv), torch.sin(sv))
+    first = fo.row_pass_mr("mid", psi, t)
+    second = fo.row_pass_mr("mid", psi, t)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("n", [1023, 513, 1152, 387])
+def test_row_pass_mr_engine_follows_the_plan(dev, n):
+    """``launches["k4_regs"]`` advances and ``last_launch["k4"]["engine"]``
+    reads "regs" on the axes of REG_MR_AXES only; "k4" counts both
+    engines."""
+    psi = _wave(dev, 2, 258, n)
+    regs = n in fo.REG_MR_AXES
+    n0, r0 = fs.launches["k4"], fs.launches["k4_regs"]
+    fo.row_pass_mr("mid", psi, _phase(dev, 258, n))
+    assert fs.launches["k4"] == n0 + 1
+    assert fs.launches["k4_regs"] == r0 + regs
+    assert fo.last_launch["k4"]["engine"] == ("regs" if regs else "tiles")
+    assert isinstance(fo.row_plan(n, 2, 258), fo.RegMrPlan) == regs
+
+
 def test_stem_chain_at_1023_runs_k5_on_registers(dev):
     """The STEM cell's chain, 16 probes at 1023^2 through 14 slices: every
-    K5 launch on the register engine, and the exit wave against the plain
-    chain."""
+    K4 and K5 launch on the register engine, and the exit wave against the
+    plain chain."""
     psi = _wave(dev, 16, 1023, 1023)
     g = torch.Generator(device=dev).manual_seed(3)
     v = torch.randn((14, 1023, 1023), device=dev, generator=g) * 50
@@ -331,6 +382,7 @@ def test_stem_chain_at_1023_runs_k5_on_registers(dev):
     k5 = fs.launches["k5"] - before["k5"]
     assert (fs.launches["k4"] - before["k4"], k5) == (14, 13)
     assert fs.launches["k5_regs"] - before["k5_regs"] == k5
+    assert fs.launches["k4_regs"] - before["k4_regs"] == 14
     _ok(got, fs.fused_multislice_plain(psi, v, ks, ks, **kw))
 
 

@@ -255,6 +255,67 @@ def test_reg_mr_axes_match_the_kernel_instantiations(n):
     assert [int(r) for r in found[str(n)].split(",")] == f
 
 
+@pytest.mark.parametrize("n", PLAN_SIZES + [513])
+@pytest.mark.parametrize("n_probes", [1, 16, 32])
+@pytest.mark.parametrize("nx", ["n", 387])
+def test_row_plan(n, n_probes, nx):
+    """K4's engine and plan for n or 387 rows (a ragged last tile: 387 =
+    48 * 8 + 3): at 1023 the register engine, groups (31, 33), 8 rows of
+    33 threads; at 513 groups (19, 27), 8 rows of 27; every other axis
+    the tile plan."""
+    nx = n if nx == "n" else nx
+    plan = todd.row_plan(n, n_probes, nx)
+    if n not in REG_PLANS:
+        assert plan == todd.tile_plan(n, n_probes, nx)
+        _check_plan(plan, n, nx, n_probes)
+        return
+    assert isinstance(plan, todd.RegMrPlan)
+    assert (plan.groups, plan.threads, plan.smem_bytes) == REG_PLANS[n]
+    assert plan.lanes == 8 and plan.threads == max(plan.groups) * 8
+    assert plan.tiles == n_probes * -(-nx // 8)
+    seen = np.zeros((n_probes, nx), int)
+    tpp = -(-nx // plan.lanes)
+    for u in range(plan.tiles):
+        x0 = (u % tpp) * plan.lanes
+        seen[u // tpp, x0:min(x0 + plan.lanes, nx)] += 1
+    assert (seen == 1).all()
+
+
+def test_row_plan_every_kernel_size():
+    """Every axis up to 4096 that dispatch gives K4: the register engine
+    on REG_MR_AXES alone, whose blocks fit an SM; the tile plan on every
+    other axis."""
+    sizes = [n for n in range(2, 4097)
+             if todd.supported_size_mr(n, 16) and todd.kernel_preferred_mr(n)]
+    regs = []
+    for n in sizes:
+        plan = todd.row_plan(n, 16, 387)
+        if not isinstance(plan, todd.RegMrPlan):
+            assert plan == todd.tile_plan(n, 16, 387)
+            continue
+        regs.append(n)
+        assert plan.threads <= 1024
+        assert plan.smem_bytes + tfs.SMEM_BLOCK_RESERVED <= tfs.SMEM_SM
+    assert regs == sorted(todd.REG_MR_AXES)
+
+
+@pytest.mark.parametrize("n", sorted(REG_PLANS))
+def test_reg_mr_axes_match_the_row_kernel_instantiations(n):
+    """fs_row_pass_mr_reg (csrc/fused_step_odd.cu) launches K4's register
+    kernel on exactly the axes of REG_MR_AXES, each with its stage
+    radices, N1 | N2 as REG_MR_AXES gives them."""
+    f = todd.stage_radices(n)
+    n1, n2 = todd.REG_MR_AXES[n]
+    assert (n1, n2) == (f[0], int(np.prod(f[1:])))
+    src = (Path(todd.__file__).parent / "csrc" / "fused_step_odd.cu"
+           ).read_text()
+    body = src[src.index("int fs_row_pass_mr_reg("):]
+    found = dict(re.findall(
+        r"case (\d+):\s*return launch_row_reg<([\d, ]+)>", body))
+    assert sorted(int(m) for m in found) == sorted(todd.REG_MR_AXES)
+    assert [int(r) for r in found[str(n)].split(",")] == f
+
+
 @pytest.mark.parametrize("n", PLAN_SIZES)
 @pytest.mark.parametrize("n_probes", [1, 16, 32])
 def test_row_tile_plan(n, n_probes):
