@@ -17,10 +17,12 @@ standard detector geometries over it:
 The reductions over a WFData run on the device its wave data lies on (a
 tensor from ``device_output=True``; a host array reduces on the CPU) and
 return host arrays. Masks, binning, the radial profile and the MTF are
-host NumPy, as in the JAX package. A WFData sharded over a (frame, probe)
-mesh (a ``DTensor``) reduces through ``parallel.sharded``'s
-``collected_sharded`` and ``frame_mean_intensity_sharded``; every rank of
-the mesh calls the function and gets the replicated result.
+host NumPy, as in the JAX package. Two reductions read the waves,
+``detector_sums`` and ``frame_mean_intensity``, one code for host, device
+and mesh-sharded wave data: a WFData sharded over a (frame, probe) mesh (a
+``DTensor``) runs the same arithmetic on each rank's block and
+``parallel.sharded.frame_total``'s collectives; every rank of the mesh
+calls the function and gets the replicated result.
 """
 
 from __future__ import annotations
@@ -83,33 +85,46 @@ def segmented_mask(kxs, kys, lam: float, inner_mrad: float,
     return np.stack(segs, axis=0)
 
 
-def _waves(wf_data) -> torch.Tensor:
-    """The WFData's unsharded wave data as a tensor (a host array without
-    a copy; a DTensor on a mesh of size 1 as its local tensor)."""
-    wf = sharded.local_of(wf_data.wavefunction_data)
+def _local_waves(wave_data) -> torch.Tensor:
+    """The rank's wave data as a tensor: a DTensor's local tensor, a host
+    array without a copy."""
+    wf = sharded.local_of(wave_data)
     return wf if isinstance(wf, torch.Tensor) else \
         torch.from_numpy(np.asarray(wf))
 
 
-def _collected(wf_data, mask, intensity: bool, layer_index: int = -1):
-    """Per-(probe, segment) mean-over-frames masked k sum, on the wave
-    data's device (sharded wave data through collected_sharded)."""
-    mesh = sharded.sharded_mesh_of(wf_data.wavefunction_data)
-    if mesh is not None:
-        return sharded.collected_sharded(
-            wf_data.wavefunction_data, mesh, mask, layer_index=layer_index,
-            intensity=intensity).cpu().numpy()
-    wf = _waves(wf_data)
-    exits = wf[:, :, :, :, layer_index].abs()
+def detector_sums(wave_data, planes, intensity: bool = False,
+                  layer_index: int = -1) -> torch.Tensor:
+    """Mean over frames of the k sums of |psi| (|psi|^2 with
+    ``intensity``) against real weight planes: (n_probes, n_planes), on
+    the waves' device. ``wave_data``: a (probes, frames, kx, ky, layers)
+    host array, tensor or mesh-sharded DTensor; ``planes``: (nx, ny) or
+    (n_planes, nx, ny). The rank's block is contracted here and
+    ``sharded.frame_total`` adds a mesh's collectives (every rank of the
+    mesh calls this and gets the replicated result). The core of
+    calculateADF, virtual_image, center_of_mass and collected_sharded."""
+    x = _local_waves(wave_data)[..., layer_index].abs()
     if intensity:
-        exits = exits ** 2
-    m = torch.as_tensor(np.asarray(mask), device=exits.device).to(exits.dtype)
+        x = x * x
+    m = planes if isinstance(planes, torch.Tensor) else \
+        torch.as_tensor(np.asarray(planes, np.float64))
+    m = m.to(device=x.device, dtype=x.dtype)
     if m.dim() == 2:
         m = m[None]
-    # Contract k per segment without materializing the (P, T, S, nx, ny)
-    # broadcast: one einsum, then the frame mean.
-    out = torch.einsum("ptxy,sxy->ps", exits, m) / exits.shape[1]
-    return out.cpu().numpy()
+    # Contract k per plane without materializing the (P, T, S, nx, ny)
+    # broadcast.
+    s = torch.einsum("ptxy,sxy->ps", x, m)
+    return sharded.frame_total(s, wave_data) / wave_data.shape[1]
+
+
+def frame_mean_intensity(wave_data, layer_index: int = -1) -> torch.Tensor:
+    """(n_probes, nx, ny) mean over frames of |psi|^2, on the waves'
+    device, for the wave data ``detector_sums`` takes (a mesh's
+    collectives in ``sharded.frame_total``). The core of pacbed,
+    scan_grid_data and frame_mean_intensity_sharded."""
+    x = _local_waves(wave_data)[..., layer_index]
+    s = (x.abs() ** 2).sum(dim=1)
+    return sharded.frame_total(s, wave_data) / wave_data.shape[1]
 
 
 def _scan_axes(probe_positions):
@@ -143,7 +158,8 @@ def virtual_image(wf_data, mask, intensity: bool = True,
     """
     mask = np.asarray(mask)
     squeeze = mask.ndim == 2
-    collected = _collected(wf_data, mask, intensity, layer_index)
+    collected = detector_sums(wf_data.wavefunction_data, mask, intensity,
+                              layer_index).cpu().numpy()
     xs, ys, nearest = _scan_grid(wf_data.probe_positions)
     img = collected[nearest].reshape(len(xs), len(ys), -1)
     img = np.moveaxis(img, -1, 0)
@@ -156,28 +172,15 @@ def center_of_mass(wf_data, layer_index: int = -1) -> np.ndarray:
     kx1 = np.asarray(wf_data.kxs, dtype=np.float64)
     ky1 = np.asarray(wf_data.kys, dtype=np.float64)
     wf = wf_data.wavefunction_data
-    mesh = sharded.sharded_mesh_of(wf)
-    if mesh is not None:
-        # three weight planes (1, kx, ky): the zeroth and first moments in
-        # one sharded reduction
-        nx, ny = wf.shape[2], wf.shape[3]
-        weights = np.stack([np.ones((nx, ny)),
-                            np.broadcast_to(kx1[:, None], (nx, ny)),
-                            np.broadcast_to(ky1[None, :], (nx, ny))])
-        col = sharded.collected_sharded(wf, mesh, weights,
-                                        layer_index=layer_index,
-                                        intensity=True).cpu().numpy()
-        com = np.stack([col[:, 1] / col[:, 0], col[:, 2] / col[:, 0]])
-    else:
-        w = _waves(wf_data)
-        inten = (w[:, :, :, :, layer_index].abs() ** 2).mean(dim=1)
-        as_k = lambda k: torch.as_tensor(k, device=inten.device) \
-            .to(inten.dtype)
-        kx, ky = as_k(kx1), as_k(ky1)
-        total = inten.sum(dim=(1, 2))
-        comx = (inten * kx[None, :, None]).sum(dim=(1, 2)) / total
-        comy = (inten * ky[None, None, :]).sum(dim=(1, 2)) / total
-        com = torch.stack([comx, comy], dim=0).cpu().numpy()
+    # three weight planes (1, kx, ky): the zeroth and first moments in one
+    # reduction
+    nx, ny = wf.shape[2], wf.shape[3]
+    weights = np.stack([np.ones((nx, ny)),
+                        np.broadcast_to(kx1[:, None], (nx, ny)),
+                        np.broadcast_to(ky1[None, :], (nx, ny))])
+    col = detector_sums(wf, weights, intensity=True,
+                        layer_index=layer_index).cpu().numpy()
+    com = np.stack([col[:, 1] / col[:, 0], col[:, 2] / col[:, 0]])
     xs, ys, nearest = _scan_grid(wf_data.probe_positions)
     return com[:, nearest].reshape(2, len(xs), len(ys))
 
@@ -227,19 +230,11 @@ def pacbed(wf_data, layer_index: int = -1, probe_indices=None
     standard fingerprint for thickness/tilt determination (LeBeau et al.,
     Ultramicroscopy 110, 2010). ``probe_indices`` restricts the average
     to a subset of scan positions (e.g. one unit cell)."""
-    mesh = sharded.sharded_mesh_of(wf_data.wavefunction_data)
-    if mesh is not None:
-        per = sharded.frame_mean_intensity_sharded(
-            wf_data.wavefunction_data, mesh, layer_index=layer_index)
-        if probe_indices is not None:
-            per = per[torch.as_tensor(np.asarray(probe_indices, np.int64),
-                                      device=per.device)]
-        return per.mean(dim=0).cpu().numpy()
-    w = _waves(wf_data)[..., layer_index]
+    per = frame_mean_intensity(wf_data.wavefunction_data, layer_index)
     if probe_indices is not None:
-        w = w[torch.as_tensor(np.asarray(probe_indices, dtype=np.int64),
-                              device=w.device)]
-    return (w.abs() ** 2).mean(dim=(0, 1)).cpu().numpy()
+        per = per[torch.as_tensor(np.asarray(probe_indices, np.int64),
+                                  device=per.device)]
+    return per.mean(dim=0).cpu().numpy()
 
 
 def radial_profile(pattern, kxs, kys, n_bins: int = 128,

@@ -31,8 +31,8 @@ Conventions: detector axes arrive fftshifted (the WFData layout); the
 solvers run in natural FFT order. Probe shifts are exact k-space phase
 ramps exp(2 pi i k . pos) (quirk 14, as ``physics.probe.shift_probes``),
 so the probe listed at R sits physically at c - R (c the base probe's
-centre). A WFData sharded over a (frame, probe) mesh reduces through
-``parallel.sharded`` in ``scan_grid_data``, and ``msp_reconstruct(mesh=)``
+centre). ``scan_grid_data`` takes a WFData sharded over a (frame, probe)
+mesh as it takes any other, and ``msp_reconstruct(mesh=)``
 splits every minibatch over the mesh's ranks (data parallelism; one
 all_reduce of the loss and the gradients a step).
 """
@@ -47,7 +47,7 @@ import torch
 from ..core.dtypes import DOUBLE, SINGLE
 from ..physics.adjoint import multislice_diff
 from ..parallel import sharded
-from .detectors import _scan_grid, _waves
+from .detectors import _scan_grid, frame_mean_intensity
 
 
 def scan_grid_data(wf_data, layer_index: int = -1):
@@ -57,16 +57,11 @@ def scan_grid_data(wf_data, layer_index: int = -1):
     (n_sx, n_sy, nkx, nky), a host array: the frame-averaged detector
     intensity a scan point (the nearest probe to each point of the
     unique-x by unique-y grid, as ``HAADFData.calculateADF``). A WFData on
-    the card reduces there; a sharded one through
-    ``frame_mean_intensity_sharded`` (every rank of its mesh calls this).
+    the card reduces there; a sharded one reduces each rank's block, then
+    sums it over the mesh (``detectors.frame_mean_intensity``; every rank
+    of its mesh calls this).
     """
-    mesh = sharded.sharded_mesh_of(wf_data.wavefunction_data)
-    if mesh is not None:
-        inten = sharded.frame_mean_intensity_sharded(
-            wf_data.wavefunction_data, mesh, layer_index=layer_index)
-    else:
-        wf = _waves(wf_data)
-        inten = (wf[:, :, :, :, layer_index].abs() ** 2).mean(dim=1)
+    inten = frame_mean_intensity(wf_data.wavefunction_data, layer_index)
     xs, ys, nearest = _scan_grid(wf_data.probe_positions)
     data4d = inten[torch.as_tensor(nearest, device=inten.device)]
     return xs, ys, data4d.reshape(len(xs), len(ys), *inten.shape[-2:]) \

@@ -18,8 +18,8 @@ analysis methods reduce |Psi(omega, q)|^2 and return NumPy arrays:
 host WFData, as in the JAX package. A WFData sharded over a (frame, probe)
 mesh (``setup(mesh=...)``) takes the sharded branch: the exit waves are
 traded from frame shards to kx stripes by all_to_alls on the frame group,
-one a probe chunk (``parallel.sharded.tacaw_intensity_sharded``, chunked
-by ``probe_chunk`` as the unsharded path is), the intensity stays a
+one a probe chunk (``parallel.sharded.tacaw_intensity_sharded``, through
+the unsharded path's chunk loop, ``time_fft_chunks``), the intensity stays a
 k-sharded DTensor with kx zero-padded to the frame extent, and every
 method reduces it with collectives and returns the replicated result
 (every rank of the mesh must call it). ``intensity`` crops the pad on
@@ -29,7 +29,7 @@ access. On a mesh of size 1 the local tensor takes the unsharded path.
 from __future__ import annotations
 
 import functools
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -56,6 +56,25 @@ def probe_chunk(per_probe: int, chunk_elems: Optional[int] = None) -> int:
     return max(1, int(limit // max(per_probe, 1)))
 
 
+def time_fft_chunks(n_probes: int, step: int,
+                    block: Callable[[int, int], torch.Tensor]
+                    ) -> torch.Tensor:
+    """The time FFT's probe-chunk loop: ``_time_fft_block`` of ``block(i,
+    j)``, the (j - i, time, kx, ky) waves of probes i:j, for chunks of
+    ``step`` probes. One chunk returns its own result; several write theirs
+    into one output, allocated beside the first chunk's result once that
+    chunk's temporaries are gone, so that no peak holds both."""
+    if step >= n_probes:
+        return _time_fft_block(block(0, n_probes))
+    out = None
+    for i in range(0, n_probes, step):
+        res = _time_fft_block(block(i, min(i + step, n_probes)))
+        if out is None:
+            out = res.new_empty((n_probes,) + tuple(res.shape[1:]))
+        out[i:i + res.shape[0]] = res
+    return out
+
+
 def time_fft_intensity(wf_layer, chunk_elems: int = CHUNK_ELEMS):
     """|fftshift_t(fft_t(wf - mean_t(wf)))|^2 along axis 1 of a (probes,
     time, kx, ky) tensor or array, in probe chunks. A tensor stays on its
@@ -64,10 +83,8 @@ def time_fft_intensity(wf_layer, chunk_elems: int = CHUNK_ELEMS):
     with span("analysis.time_fft"):
         wf = torch.from_numpy(np.ascontiguousarray(wf_layer)) if host \
             else wf_layer
-        n_probes = wf.shape[0]
-        chunk = probe_chunk(int(np.prod(wf.shape[1:])), chunk_elems)
-        out = torch.cat([_time_fft_block(wf[i:i + chunk])
-                         for i in range(0, n_probes, chunk)], dim=0)
+        step = probe_chunk(int(np.prod(wf.shape[1:])), chunk_elems)
+        out = time_fft_chunks(wf.shape[0], step, lambda i, j: wf[i:j])
     return out.numpy() if host else out
 
 

@@ -8,9 +8,13 @@ axis). The cross-frame dependency appears only at the TACAW time FFT: every
 (probe, kx, ky) pixel needs all frames. ``tacaw_intensity_sharded`` trades
 the frame shards for kx stripes with ``all_to_all_single`` on the frame
 group, then transforms along the now-complete time axis locally, one probe
-chunk at a time, so that a rank holds its waves, the intensity and one
-chunk's temporaries rather than copies of the whole block.
-Reductions finish with ``all_reduce`` over the axis they sum.
+chunk at a time (``analysis.tacaw.time_fft_chunks``, the unsharded path's
+loop), so that a rank holds its waves, the intensity and one chunk's
+temporaries rather than copies of the whole block.
+Reductions finish with ``all_reduce`` over the axis they sum. The wave
+reductions (detector sums, frame-mean intensity) are
+``analysis.detectors``' own, one code for a card and a mesh; here
+``frame_total`` adds their collectives.
 
 JAX's ``shard_map`` blocks become plain functions of the rank's local
 tensor with explicit collectives on the group of one mesh axis:
@@ -232,11 +236,12 @@ def tacaw_intensity_sharded(wf, mesh, layer_index: int = -1,
         stripes of torch.chunk's uneven sizes. Keep crop=False for further
         sharded reductions: the pad rows are exact zeros.
 
-    The rank's probes go through in chunks, one all_to_all each: a chunk
-    is padded, exchanged, transformed and its |.|^2 written into its rows
-    of the one output, so no temporary is larger than a chunk's block.
+    The rank's probes go through ``analysis.tacaw.time_fft_chunks`` in
+    chunks of ``probe_chunk`` probes, one all_to_all each: this function
+    hands it a chunk padded, exchanged and laid out (probes, time, stripe,
+    ky), so no temporary is larger than a chunk's block.
     """
-    from ..analysis.tacaw import _time_fft_block, probe_chunk
+    from ..analysis.tacaw import probe_chunk, time_fft_chunks
     n_layers = wf.shape[-1]
     layer_index = layer_index % n_layers
     _check_divisible(mesh, n_frames=wf.shape[1], n_probes=wf.shape[0])
@@ -249,17 +254,14 @@ def tacaw_intensity_sharded(wf, mesh, layer_index: int = -1,
         x = local_of(wf)[..., layer_index]        # (p_loc, f_loc, nx, ny)
         p_loc, f_loc, _, ny = x.shape
         n_t = f_ext * f_loc
-        out = torch.empty((p_loc, n_t, stripe, ny), dtype=x.real.dtype,
-                          device=x.device)
-        step = probe_chunk(n_t * stripe * ny, chunk_elems)
-        for i in range(0, p_loc, step):
-            blk = x[i:i + step]
-            c = blk.shape[0]
+
+        def exchanged(lo: int, hi: int) -> torch.Tensor:
+            blk = x[lo:hi]
             if pad:
                 blk = torch.nn.functional.pad(blk, (0, 0, 0, pad))
             # kx stripes to dim 0; block j goes to frame rank j, and block
             # j of the result holds frame rank j's frames of this stripe.
-            send = blk.reshape(c, f_loc, f_ext, stripe, ny)
+            send = blk.reshape(hi - lo, f_loc, f_ext, stripe, ny)
             send = send.permute(2, 0, 1, 3, 4)
             if traced is not None:
                 _sync(x)
@@ -268,8 +270,10 @@ def tacaw_intensity_sharded(wf, mesh, layer_index: int = -1,
             if traced is not None:
                 _sync(recv)
                 STATS["all_to_all_s"] += time.perf_counter() - t0
-            recv = recv.transpose(0, 1).reshape(c, n_t, stripe, ny)
-            out[i:i + c] = _time_fft_block(recv)
+            return recv.transpose(0, 1).reshape(hi - lo, n_t, stripe, ny)
+
+        out = time_fft_chunks(p_loc, probe_chunk(n_t * stripe * ny,
+                                                 chunk_elems), exchanged)
         out = _wrap(out, mesh, 2, 0,
                     shape=(wf.shape[0], wf.shape[1], nx + pad, ny))
     return crop_kx(out, mesh, nx) if pad and crop else out
@@ -309,8 +313,7 @@ def tacaw_spectrum_sharded(intensity, mesh) -> torch.Tensor:
 def sharded_mesh_of(x):
     """The ('frame', 'probe') mesh a DTensor is sharded over, or None for a
     plain tensor, an array, a mesh of size 1 or a mesh without both axes.
-    The analysis facades route through the reductions below when it is
-    not None, and take the unsharded path on ``local_of(x)`` otherwise."""
+    ``frame_total`` adds the collectives when it is not None."""
     if not is_sharded(x):
         return None
     m = x.device_mesh
@@ -326,45 +329,36 @@ def _replicate_over_probe(s_local: torch.Tensor, mesh) -> torch.Tensor:
     return all_gather(s_local, mesh.get_group(PROBE_AXIS))
 
 
-def _masks_like(masks, wf_local: torch.Tensor) -> torch.Tensor:
-    rd = torch.float64 if wf_local.dtype == torch.complex128 \
-        else torch.float32
-    m = masks if isinstance(masks, torch.Tensor) \
-        else torch.as_tensor(np.asarray(masks, np.float64))
-    m = m.to(device=wf_local.device, dtype=rd)
-    return m[None] if m.dim() == 2 else m
+def frame_total(s_local: torch.Tensor, wf) -> torch.Tensor:
+    """A (p_loc, ...) sum over this rank's frames of the exit-wave stack
+    ``wf`` -> the sum over all its frames, (n_probes, ...) on every rank:
+    an all_reduce on the frame group, then an all-gather on the probe
+    group. Off a mesh (``sharded_mesh_of(wf)`` None) ``s_local`` is that
+    sum already and is returned as it is."""
+    mesh = sharded_mesh_of(wf)
+    if mesh is None:
+        return s_local
+    _check_divisible(mesh, n_frames=wf.shape[1], n_probes=wf.shape[0])
+    s = all_reduce(s_local, mesh.get_group(FRAME_AXIS))
+    return _replicate_over_probe(s, mesh)
 
 
 def collected_sharded(wf, mesh, masks, layer_index: int = -1,
                       intensity: bool = False) -> torch.Tensor:
-    """Mean-over-frames masked k sums of a sharded exit-wave stack: the
-    core of HAADFData.calculateADF, virtual_image and center_of_mass.
-
-    ``masks``: (nx, ny) or (n_masks, nx, ny) real weight planes (the same
-    on every rank); ``intensity``: |psi|^2 instead of the reference's
-    |psi|. Returns (n_probes, n_masks), replicated."""
-    _check_divisible(mesh, n_frames=wf.shape[1], n_probes=wf.shape[0])
-    li = layer_index % wf.shape[-1]
-    local = local_of(wf)
-    m = _masks_like(masks, local)
-    x = local[..., li].abs()
-    if intensity:
-        x = x * x
-    s = torch.einsum("pfxy,sxy->ps", x, m)
-    s = all_reduce(s, mesh.get_group(FRAME_AXIS)) / wf.shape[1]
-    return _replicate_over_probe(s, mesh)
+    """``analysis.detectors.detector_sums`` of a sharded exit-wave stack
+    on its mesh ``mesh``: (n_probes, n_masks) mean-over-frames masked k
+    sums, replicated."""
+    from ..analysis.detectors import detector_sums
+    return detector_sums(wf, masks, intensity=intensity,
+                         layer_index=layer_index)
 
 
 def frame_mean_intensity_sharded(wf, mesh,
                                  layer_index: int = -1) -> torch.Tensor:
-    """(n_probes, nx, ny) frame-averaged |psi|^2, replicated: the core of
-    scan_grid_data and pacbed (n_probes * nx * ny values on every rank)."""
-    _check_divisible(mesh, n_frames=wf.shape[1], n_probes=wf.shape[0])
-    li = layer_index % wf.shape[-1]
-    x = local_of(wf)[..., li]
-    s = (x.abs() ** 2).sum(dim=1)
-    s = all_reduce(s, mesh.get_group(FRAME_AXIS)) / wf.shape[1]
-    return _replicate_over_probe(s, mesh)
+    """``analysis.detectors.frame_mean_intensity`` of a sharded exit-wave
+    stack on its mesh ``mesh``: (n_probes, nx, ny), replicated."""
+    from ..analysis.detectors import frame_mean_intensity
+    return frame_mean_intensity(wf, layer_index=layer_index)
 
 
 def _local_stripe(full_plane: torch.Tensor, stripe: int,

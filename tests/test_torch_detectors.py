@@ -112,6 +112,24 @@ class TestVirtualImaging:
             np.testing.assert_allclose(
                 got, tt.HAADFData(twf).calculateADF(45), rtol=1e-12)
 
+    @pytest.mark.parametrize("oblique", [False, True])
+    @pytest.mark.parametrize("theta", [20.0, 45.0])
+    def test_calculateADF_is_virtual_image(self, twf, theta, oblique):
+        """calculateADF is virtual_image with its own mask (q > theta /
+        lambda, q from ksq_shifted on an oblique cell), bit for bit, for
+        host and tensor wave data."""
+        import dataclasses
+        ksq = np.add.outer(np.asarray(twf.kxs) ** 2,
+                           np.asarray(twf.kys) ** 2)
+        if oblique:
+            ksq = ksq * 1.1
+            twf = dataclasses.replace(twf, ksq_shifted=ksq)
+        mask = np.sqrt(ksq) > (theta * 1e-3) / twf.probe.wavelength
+        assert 0 < mask.sum() < mask.size
+        np.testing.assert_array_equal(
+            tt.HAADFData(twf).calculateADF(theta),
+            td.virtual_image(twf, mask, intensity=False))
+
     def test_segmented_virtual_images(self, wfs, twf):
         jwf, _ = wfs
         lam = jwf.probe.wavelength

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from pyslice_tpu_torch.analysis import tacaw
 from pyslice_tpu_torch.analysis.tacaw import (CHUNK_ELEMS, probe_chunk,
                                               time_fft_intensity)
 
@@ -181,3 +182,33 @@ def test_time_fft_intensity_chunks_agree():
         got = time_fft_intensity(wf, chunk_elems=probes * T * NX * NY)
         assert np.abs((got - whole).numpy()).max() \
             <= 1e-12 * whole.abs().max().item()
+
+
+def test_one_chunk_returns_its_own_block(monkeypatch):
+    """One chunk (the plane wave's single probe) is returned as the block
+    computed it: no output is allocated beside it and nothing copies it.
+    Several chunks fill one output, allocated once, in probe order."""
+    made, allocs = [], []
+
+    def tagged(blk):
+        out = torch.full(blk.shape, float(len(made)), dtype=torch.float64)
+        made.append(out)
+        return out
+
+    new_empty = torch.Tensor.new_empty
+
+    def counted(self, *args, **kwargs):
+        allocs.append(args)
+        return new_empty(self, *args, **kwargs)
+
+    monkeypatch.setattr(tacaw, "_time_fft_block", tagged)
+    monkeypatch.setattr(torch.Tensor, "new_empty", counted)
+    wf = torch.zeros((3, T, NX, NY), dtype=torch.complex128)
+    assert probe_chunk(T * NX * NY) >= 3
+    got = time_fft_intensity(wf)
+    assert len(made) == 1 and got is made[0] and not allocs
+    made.clear()
+    got = time_fft_intensity(wf, chunk_elems=T * NX * NY)
+    assert len(made) == 3 and len(allocs) == 1
+    assert all(got is not m for m in made)
+    assert got[:, 0, 0, 0].tolist() == [0.0, 1.0, 2.0]
