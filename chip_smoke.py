@@ -22,6 +22,15 @@ Phases, each printing one line (or a few) and failing hard:
    stack and the phase stack, each with its plan and grid, two launches
    the same bits, one depth-recording chain each, and its barrier floor
    (the launch's grid barriers alone);
+4b. the TACAW time FFT kernel (analysis.time_fft) at the main path's shapes,
+   16 x 100 x 1023^2 (the STEM job's waves), 1 x 100 x 1023^2 (the plane
+   wave's) and 1 x 400 x 256 x 1023 (a four-card rank's chunk), waves
+   with a mean as exit waves have, against the float64 chain a probe at a
+   time (max|d|/max|ref| <= 1e-4 and the residual <= 1e-6), one launch
+   each; its time beside its bound (waves read once, intensity written
+   once) and the plain chain's (the probe-chunked torch.fft chain with
+   its copies into the output, the main path before the kernel);
+   ``python3 chip_smoke.py --phase 4b`` runs phases 1, 2 and 4b alone;
 5. STEM at 1024^2: an hBN monolayer filling a 102.35 A box (3,680 atoms,
    10 thermal frames) through MultisliceCalculator(device="cuda") at
    16 probes x 14 slices; A/B/C launch counts, the plain-path residual on
@@ -222,6 +231,8 @@ KERNELS = {
     "k8": ("fused_step_adjoint.row_pass_mr_bwd (K8)",
            "fused_step_adjoint_odd.cu",
            "pyslice_tpu/ops/fused_step_adjoint.py:346"),
+    "time_fft": ("time_fft.time_fft (the TACAW time FFT)", "time_fft.cu",
+                 "none: pyslice_tpu/analysis/tacaw.py leaves it to XLA"),
 }
 MSP_SCAN, MSP_BATCH, MSP_STEPS = 8, 16, 5   # 64 positions, 16 a step
 MSP_STEP_A = 0.5             # scan step (A): neighbouring probes overlap
@@ -582,6 +593,85 @@ def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES, n_tiles=1152):
     for key in loops:
         records[key].update(plan=k6_plans[key], barrier_ms=barrier_ms[key])
     return records
+
+
+# Phase 4b's shapes: the STEM job's waves, the plane wave's, a four-card
+# rank's chunk (1 probe x 400 frames x a 256-row kx stripe x 1023).
+TF_SHAPES = ((N_PROBES, QUICK_FRAMES, N_ODD, N_ODD),
+             (1, QUICK_FRAMES, N_ODD, N_ODD), (1, 400, 256, N_ODD))
+
+
+def time_fft_bound(shape):
+    """The time FFT's bound: the complex64 waves read once and the float32
+    intensity written once, against 5 T log2 T operations a column."""
+    P, T, nx, ny = shape
+    cols = P * nx * ny
+    t_bytes = cols * T * (C64 + F32) / HBM_BYTES_S
+    t_ops = cols * fft_flops(T) / FP32_FLOP_S
+    by_bytes = t_bytes >= t_ops
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if by_bytes else "operations",
+            "bound": "hbm" if by_bytes else "fp32", "library_ms": None}
+
+
+def time_fft_phase(dev, shapes=TF_SHAPES):
+    """Phase 4b: the time FFT kernel against the float64 chain a probe at
+    a time, one launch a call, timed beside its bound and the plain
+    chain. Returns the JSON record keyed "time_fft"."""
+    import torch
+    from pyslice_tpu_torch.analysis import tacaw
+    from pyslice_tpu_torch.ops import fused_step as fs
+    from pyslice_tpu_torch.analysis import time_fft as tf
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    rec = None
+    for shape in shapes:
+        P, T = shape[:2]
+        # exit waves: a mean of order one under smaller fluctuations
+        x = torch.randn(shape, dtype=torch.complex64, device=dev,
+                        generator=g) * 0.1 + (0.6 + 0.3j)
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+        got, counts, _ = launches_of(lambda: tf.time_fft(x, out))
+        require(counts == want_counts(time_fft=1),
+                f"time FFT at {shape}: launches {counts}")
+        rel = res = d_max = 0.0
+        for p in range(P):
+            d, r, q = errors(got[p:p + 1], tacaw._time_fft_block(
+                x[p:p + 1].to(torch.complex128)))
+            d_max, rel, res = max(d_max, d), max(rel, r), max(res, q)
+        label = "x".join(map(str, shape))
+        print(f"  time FFT {label}: max|d| {d_max:.3e}  max|d|/max|ref| "
+              f"{rel:.3e}  residual {res:.3e} (float64 chain); plan "
+              f"{fs.last_launch['time_fft']}")
+        require(rel <= MAX_REL and res <= MAX_RESIDUAL,
+                f"time FFT at {shape} disagrees")
+        step = tacaw.probe_chunk(T * shape[2] * shape[3])
+
+        def plain():
+            if step >= P:
+                return tacaw._time_fft_block(x)
+            for i in range(0, P, step):
+                out[i:i + step] = tacaw._time_fft_block(x[i:i + step])
+            return out
+
+        reps = 5 if P > 1 else 20
+        ms = cuda_ms(lambda: tf.time_fft(x, out), reps)
+        plain_ms = cuda_ms(plain, reps)
+        b = time_fft_bound(shape)
+        print(f"  time FFT {label}: {ms:.4f} ms, plain chain {plain_ms:.4f} "
+              f"ms, bound {b['bound_ms']:.4f} ms ({b['bound']}, "
+              f"{100 * b['bound_ms'] / ms:.1f}%)")
+        entry = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": d_max,
+                 "max_rel_err": rel, "residual": res, **b}
+        if rec is None:
+            name, src, replaces = KERNELS["time_fft"]
+            rec = {"name": name, "route": "cuda", "source": CSRC + src,
+                   "replaces": replaces, "shape": label, **entry,
+                   "plan": dict(fs.last_launch["time_fft"]), "shapes": {}}
+        rec["shapes"][label] = entry
+        del x, out, got
+        torch.cuda.empty_cache()
+    return {"time_fft": rec}
 
 
 def k4_tile_check(dev, g, P, n):
@@ -2788,10 +2878,13 @@ def multigpu_phase(dev, card, tmp, stem_lx=102.35, stream_lx=STREAM_LX,
 # fragments, the launches it must make). "plain": the run's grids lie below
 # the kernels' smallest axis (128; a power of two for A/B/C, K7; radices
 # <= 31 for K4, K5, K6 mixed, K8), the JAX package's rule too, so the demo
-# at its own size runs the plain torch.fft loop and must launch no kernel;
-# "kernels": at least one kernel launch; a dict: those kernels launched
-# exactly that often, others as they fall. "files": writes files, no device
-# work.
+# at its own size runs the plain torch.fft loop and must launch no slice
+# kernel; "kernels": at least one slice kernel launch; a dict: those
+# kernels launched exactly that often, others as they fall. "files":
+# writes files, no device work. The time FFT's kernel follows the frame
+# count, not the grid: its counts (SLICE_FREE) are not held to "plain" or
+# "kernels".
+SLICE_FREE = ("time_fft", "time_fft_plain")
 EX_DUMP = "hbn_1023.lammpstrj"       # phase 6's box, written anew here
 EX_DUMP_LX = 102.25
 EXAMPLE_RUNS = [
@@ -2802,7 +2895,7 @@ EXAMPLE_RUNS = [
     ("tacaw_demo", [EX_DUMP, "--sampling", "0.1", "--frames",
                     str(QUICK_FRAMES)],
      ["grid 1023x1023x14", "HAADF: ", "image (10, 10)"],
-     {"k6": QUICK_FRAMES}),
+     {"k6": QUICK_FRAMES, "time_fft": 1, "time_fft_plain": 0}),
     ("si_dumbbells", [], ["dumbbell split 1.358", "si_dumbbells OK"],
      "plain"),
     ("si_dumbbells", ["--min-size", "20", "--sampling", "0.085", "--scan",
@@ -3054,6 +3147,8 @@ def examples_phase(dev, card, tmp):
                 launched = {k: v for k, v in counts.items() if v}
                 print(f"  {name} {shown}: {seconds:.2f} s, launches "
                       f"{launched}; card {card}")
+                launched = {k: v for k, v in launched.items()
+                            if k not in SLICE_FREE}
                 for line in out.splitlines()[-8:]:
                     print(f"    | {line[:150]}")
                 for frag in expect:
@@ -3108,6 +3203,11 @@ def main():
             print(multigpu_phase(dev, card, tmp))
         print(card)
         return 0
+    if sys.argv[1:] == ["--phase", "4b"]:
+        print("[4b] the time FFT kernel alone:")
+        print(json.dumps(time_fft_phase(dev)))
+        print(card)
+        return 0
     if sys.argv[1:] == ["--phase", "23"]:
         # phase 23 alone (the examples): no kernels line, no result line
         with tempfile.TemporaryDirectory() as tmp:
@@ -3122,6 +3222,9 @@ def main():
     print(f"[4] kernels K4, K5 at {N_PROBES} x {N_ODD}^2, K6 at 1 x {N_ODD}^2 "
           "and 1 x 1024^2 vs plain versions:")
     records.update(mr_kernel_phase(dev))
+    shapes = ", ".join("x".join(map(str, s)) for s in TF_SHAPES)
+    print(f"[4b] the time FFT kernel at {shapes}:")
+    records.update(time_fft_phase(dev))
     print("[5] STEM at 1024^2 (kernels A, B, C):")
     counts = slice_phase(dev, card)
     with tempfile.TemporaryDirectory() as tmp:

@@ -1,10 +1,12 @@
 """TACAW frequency-domain analysis.
 
 Counterpart of ``pyslice_tpu/analysis/tacaw.py`` (reference
-``tacaw_data.py:36-353``). The exit waves are FFT'd along time
-(``torch.fft`` on the device they lie on, chunked over probes, with the
-time mean subtracted first to suppress the zero-frequency peak); the six
-analysis methods reduce |Psi(omega, q)|^2 and return NumPy arrays:
+``tacaw_data.py:36-353``). The exit waves are FFT'd along time, with
+the time mean subtracted first to suppress the zero-frequency peak: on the
+card in one kernel (``analysis.time_fft``) where it takes the block's frame
+count, otherwise by the plain ``torch.fft`` chain on the device the waves
+lie on, chunked over probes; the six analysis methods reduce
+|Psi(omega, q)|^2 and return NumPy arrays:
 
 * ``spectrum(probe_index=None)`` — sum over k; None averages probes.
 * ``spectrum_image(frequency, probe_indices=None)`` — one value per probe.
@@ -34,17 +36,42 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from ..ops.fused_step import launches
 from ..parallel import sharded
 from ..utils.profiling import span
+from . import time_fft as time_fft_kernel
 from .wf_data import WFData
 
 
-def _time_fft_block(blk: torch.Tensor) -> torch.Tensor:
+def _time_fft_block(blk: torch.Tensor, out=None) -> torch.Tensor:
+    """The time FFT's plain version: |fftshift_t(fft_t(blk - mean_t
+    blk))|^2 along axis 1, into ``out`` if given."""
     blk = blk - blk.mean(dim=1, keepdim=True)
-    return torch.fft.fftshift(torch.fft.fft(blk, dim=1), dim=1).abs() ** 2
+    res = torch.fft.fftshift(torch.fft.fft(blk, dim=1), dim=1).abs() ** 2
+    return res if out is None else out.copy_(res)
 
 
-# Elements of a probe chunk's block in the time FFT, sharded or not.
+def _kernel_route(blk: torch.Tensor) -> bool:
+    """Whether a block goes to the kernel (``analysis.time_fft``): a CUDA
+    complex64 block whose frame count the kernel takes. Every other block
+    takes the plain chain."""
+    return (blk.is_cuda and blk.dtype == torch.complex64
+            and time_fft_kernel.kernel_takes(blk.shape[1]))
+
+
+def time_fft_block(blk: torch.Tensor, out=None) -> torch.Tensor:
+    """The time FFT of one (probes, time, kx, ky) block, by the kernel or
+    the plain chain (``_kernel_route``), into ``out`` if given. A CUDA
+    block that the rule sends to the plain chain is counted in
+    ``launches["time_fft_plain"]``."""
+    if _kernel_route(blk):
+        return time_fft_kernel.time_fft(blk, out)
+    if blk.is_cuda:
+        launches["time_fft_plain"] += 1
+    return _time_fft_block(blk, out)
+
+
+# Elements of a probe chunk's block in the plain time FFT, sharded or not.
 CHUNK_ELEMS = 1 << 26
 
 
@@ -59,32 +86,38 @@ def probe_chunk(per_probe: int, chunk_elems: Optional[int] = None) -> int:
 def time_fft_chunks(n_probes: int, step: int,
                     block: Callable[[int, int], torch.Tensor]
                     ) -> torch.Tensor:
-    """The time FFT's probe-chunk loop: ``_time_fft_block`` of ``block(i,
+    """The time FFT's probe-chunk loop: ``time_fft_block`` of ``block(i,
     j)``, the (j - i, time, kx, ky) waves of probes i:j, for chunks of
-    ``step`` probes. One chunk returns its own result; several write theirs
-    into one output, allocated beside the first chunk's result once that
-    chunk's temporaries are gone, so that no peak holds both."""
-    if step >= n_probes:
-        return _time_fft_block(block(0, n_probes))
-    out = None
+    ``step`` probes. The output is allocated once, before the first chunk
+    is transformed, and each chunk writes its rows of it (the kernel
+    writes them itself). The one exception is a single chunk on the plain
+    chain, which returns its own result, so that no output is allocated
+    beside the chain's temporaries."""
+    out = res = None
     for i in range(0, n_probes, step):
-        res = _time_fft_block(block(i, min(i + step, n_probes)))
-        if out is None:
-            out = res.new_empty((n_probes,) + tuple(res.shape[1:]))
-        out[i:i + res.shape[0]] = res
-    return out
+        blk = block(i, min(i + step, n_probes))
+        if out is None and (step < n_probes or _kernel_route(blk)):
+            out = blk.new_empty((n_probes,) + tuple(blk.shape[1:]),
+                                dtype=blk.real.dtype)
+        res = time_fft_block(
+            blk, None if out is None else out[i:i + blk.shape[0]])
+    return res if out is None else out
 
 
 def time_fft_intensity(wf_layer, chunk_elems: int = CHUNK_ELEMS):
     """|fftshift_t(fft_t(wf - mean_t(wf)))|^2 along axis 1 of a (probes,
-    time, kx, ky) tensor or array, in probe chunks. A tensor stays on its
-    device; a NumPy array is computed on the CPU and returned as NumPy."""
+    time, kx, ky) tensor or array. A tensor stays on its device; a NumPy
+    array is computed on the CPU and returned as NumPy. The kernel takes
+    the whole block in one launch; the plain chain runs in probe chunks of
+    ``chunk_elems``, which bound its temporaries."""
     host = not isinstance(wf_layer, torch.Tensor)
     with span("analysis.time_fft"):
         wf = torch.from_numpy(np.ascontiguousarray(wf_layer)) if host \
             else wf_layer
-        step = probe_chunk(int(np.prod(wf.shape[1:])), chunk_elems)
-        out = time_fft_chunks(wf.shape[0], step, lambda i, j: wf[i:j])
+        n = wf.shape[0]
+        step = n if _kernel_route(wf) else probe_chunk(
+            int(np.prod(wf.shape[1:])), chunk_elems)
+        out = time_fft_chunks(n, step, lambda i, j: wf[i:j])
     return out.numpy() if host else out
 
 

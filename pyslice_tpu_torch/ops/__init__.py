@@ -41,6 +41,13 @@ Kernel map (``pyslice_tpu/ops`` Pallas kernel -> this package):
   ``fused_step_adjoint.fused_adjoint_chain[_odd]`` reuse A / K4
   (``first``) and B / K5 with conj(t) and conj(P); entry point
   ``physics.adjoint.multislice_diff``.
+
+One kernel has no Pallas counterpart: ``csrc/time_fft.cu``, the TACAW
+time FFT (mean, length-T transform, |.|^2 and the shifted store in one
+pass), which the JAX package leaves to XLA. It is built here with the
+others; its wrapper ``analysis.time_fft`` sits beside its caller
+``analysis.tacaw``, which routes a block to it by its frame count
+(``analysis.time_fft.kernel_takes``).
 """
 
 

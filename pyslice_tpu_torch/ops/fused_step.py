@@ -60,10 +60,13 @@ from ..core.dtypes import SINGLE, as_real
 # Launches of each kernel since the last reset (the wrappers add one per
 # launch; nothing else touches them): A, B, C here, K4 and K5 in
 # ops.fused_step_odd, K6 in ops.fused_step_resident, K7 and K8 in
-# ops.fused_step_adjoint. "k4" and "k5" count every K4 and K5 launch,
-# "k4_regs" and "k5_regs" those of them on the register engine.
+# ops.fused_step_adjoint, the time FFT in analysis.time_fft. "k4" and "k5"
+# count every K4 and K5 launch, "k4_regs" and "k5_regs" those of them on
+# the register engine. "time_fft_plain" is no launch: it counts the CUDA
+# blocks that analysis.tacaw's rule sent to the plain torch.fft chain.
 launches = {"a": 0, "b": 0, "c": 0, "k4": 0, "k4_regs": 0, "k5": 0,
-            "k5_regs": 0, "k6": 0, "k7": 0, "k8": 0}
+            "k5_regs": 0, "k6": 0, "k7": 0, "k8": 0, "time_fft": 0,
+            "time_fft_plain": 0}
 
 # Above this many bytes for the (nz, nx, ny) complex64 transmission stack,
 # kernel A takes sigma*V and evaluates cos/sin itself: half the memory, at
@@ -74,7 +77,7 @@ ROW_MODES = {"first": 0, "mid": 1, "last": 2, "only": 3}
 
 _CSRC = Path(__file__).parent / "csrc"
 SOURCES = ("fused_step", "fused_step_odd", "resident", "fused_step_adjoint",
-           "fused_step_adjoint_odd")
+           "fused_step_adjoint_odd", "time_fft")
 _BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -167,13 +170,16 @@ _ARGTYPES = {
     "fs_resident_barriers": "iiiip",
     "fs_row_pass_bwd": "ppppppiiiifipp",
     "fs_row_pass_bwd_mr": "ppppppiiiifiiipp",
+    "tf_time_fft": "pppiiiillllipp",
 }
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the argument and result types of the C functions the
-    library exports ('p' a pointer, 'i' an int, 'f' a float)."""
-    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    library exports ('p' a pointer, 'i' an int, 'l' a long long, 'f' a
+    float)."""
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+             "l": ctypes.c_longlong, "f": ctypes.c_float}
     for name, sig in _ARGTYPES.items():
         fn = getattr(lib, name, None)
         if fn is not None:
@@ -366,8 +372,10 @@ def pair_reg_plan(n: int, rows: int, factors: bool = True,
 
 # The last launch of each persistent kernel (A, B here; K4, K5 in
 # ops.fused_step_odd; K7, K8 in ops.fused_step_adjoint): its plan and the
-# grid the occupancy query gave (grid, blocks_per_sm, sms, smem_bytes).
-last_launch = {"a": {}, "b": {}, "k4": {}, "k5": {}, "k7": {}, "k8": {}}
+# grid the occupancy query gave (grid, blocks_per_sm, sms, smem_bytes);
+# and of the time FFT (analysis.time_fft): its plan and grid.
+last_launch = {"a": {}, "b": {}, "k4": {}, "k5": {}, "k7": {}, "k8": {},
+               "time_fft": {}}
 
 
 def _record_reg_launch(kernel: str, plan: RegPlan, info) -> None:

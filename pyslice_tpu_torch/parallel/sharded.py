@@ -9,8 +9,9 @@ axis). The cross-frame dependency appears only at the TACAW time FFT: every
 the frame shards for kx stripes with ``all_to_all_single`` on the frame
 group, then transforms along the now-complete time axis locally, one probe
 chunk at a time (``analysis.tacaw.time_fft_chunks``, the unsharded path's
-loop), so that a rank holds its waves, the intensity and one chunk's
-temporaries rather than copies of the whole block.
+loop: on the card the time FFT kernel writes each chunk's rows of the
+intensity), so that a rank holds its waves, the intensity and one chunk's
+exchanged block rather than copies of the whole block.
 Reductions finish with ``all_reduce`` over the axis they sum. The wave
 reductions (detector sums, frame-mean intensity) are
 ``analysis.detectors``' own, one code for a card and a mesh; here

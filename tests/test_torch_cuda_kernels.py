@@ -764,3 +764,89 @@ def test_build_error_raises(dev, monkeypatch, tmp_path):
     monkeypatch.setattr(fs, "_build", None)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fs.build()
+
+
+# --- the TACAW time FFT (analysis.time_fft, csrc/time_fft.cu) --------------
+
+
+def _tf_waves(dev, shape, seed=0):
+    """Exit waves: a mean of order one under smaller fluctuations."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, dtype=torch.complex64, device=dev,
+                       generator=g) * 0.1 + (0.6 + 0.3j)
+
+
+def _tf_ok(got, x):
+    """The kernel's intensity against the float64 chain, a probe at a
+    time (benchmark/reference/plain.py's check)."""
+    from pyslice_tpu_torch.analysis.tacaw import _time_fft_block
+    for p in range(x.shape[0]):
+        _ok(got[p], _time_fft_block(x[p:p + 1].to(torch.complex128))[0])
+
+
+def _tf_counted(fn):
+    n0 = (fs.launches["time_fft"], fs.launches["time_fft_plain"])
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (fs.launches["time_fft"] - n0[0],
+                 fs.launches["time_fft_plain"] - n0[1])
+
+
+@pytest.mark.parametrize("shape", [(16, 100, 1023, 1023),
+                                   (1, 100, 1023, 1023),
+                                   (1, 400, 256, 1023)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_time_fft_at_the_main_paths_shapes(dev, shape):
+    from pyslice_tpu_torch.analysis import time_fft as tf
+    x = _tf_waves(dev, shape)
+    got, n = _tf_counted(lambda: tf.time_fft(x))
+    assert n == (1, 0)
+    _tf_ok(got, x)
+
+
+@pytest.mark.parametrize("n_t", [2, 3, 93, 99, 100, 400, 1000])
+def test_time_fft_frame_counts_on_a_ragged_plane(dev, n_t):
+    """Each instantiation (largest radix 8: 2, 3, 100, 1000; 16: 99, 400;
+    31: 93 = 31 x 3) on a 37 x 41 plane, whose last tile is ragged; two
+    launches give the same bits."""
+    from pyslice_tpu_torch.analysis import time_fft as tf
+    x = _tf_waves(dev, (2, n_t, 37, 41), seed=n_t)
+    got, n = _tf_counted(lambda: tf.time_fft(x))
+    assert n == (1, 0)
+    _tf_ok(got, x)
+    again, _ = _tf_counted(lambda: tf.time_fft(x))
+    assert torch.equal(got, again)
+
+
+def test_time_fft_on_a_layer_view_into_an_output_slice(dev):
+    """A [..., layer] view of a 3-layer block (ky stride 3) into rows 1:3
+    of a larger output; the rows around it untouched."""
+    from pyslice_tpu_torch.analysis import time_fft as tf
+    w = _tf_waves(dev, (2, 100, 37, 41, 3), seed=7)
+    x = w[..., 1]
+    assert x.stride() == (100 * 37 * 41 * 3, 37 * 41 * 3, 41 * 3, 3)
+    out = torch.full((4, 100, 37, 41), float("nan"), device=dev)
+    got, n = _tf_counted(lambda: tf.time_fft(x, out[1:3]))
+    assert n == (1, 0) and got.data_ptr() == out[1].data_ptr()
+    assert torch.isnan(out[0]).all() and torch.isnan(out[3]).all()
+    _tf_ok(out[1:3], x.contiguous())
+
+
+def test_tacaw_routes_cuda_blocks_by_frame_count(dev):
+    """time_fft_intensity: one kernel launch for a block the rule takes
+    (whatever the chunk size), the plain chain for 97 frames and for
+    complex128, each counted."""
+    from pyslice_tpu_torch.analysis import tacaw
+    x = _tf_waves(dev, (3, 100, 37, 41))
+    got, n = _tf_counted(lambda: tacaw.time_fft_intensity(
+        x, chunk_elems=100 * 37 * 41))
+    assert n == (1, 0)
+    _tf_ok(got, x)
+    y = _tf_waves(dev, (3, 97, 37, 41))
+    got, n = _tf_counted(lambda: tacaw.time_fft_intensity(
+        y, chunk_elems=97 * 37 * 41))
+    assert n == (0, 3)
+    _tf_ok(got, y)
+    z = x.to(torch.complex128)
+    got, n = _tf_counted(lambda: tacaw.time_fft_intensity(z))
+    assert n == (0, 1) and got.dtype == torch.float64

@@ -185,15 +185,16 @@ def test_time_fft_intensity_chunks_agree():
 
 
 def test_one_chunk_returns_its_own_block(monkeypatch):
-    """One chunk (the plane wave's single probe) is returned as the block
-    computed it: no output is allocated beside it and nothing copies it.
-    Several chunks fill one output, allocated once, in probe order."""
+    """One chunk on the plain chain is returned as the block computed it:
+    no output is allocated beside it and nothing copies it. Several chunks
+    fill one output, allocated once, in probe order: each chunk is handed
+    its rows of it."""
     made, allocs = [], []
 
-    def tagged(blk):
-        out = torch.full(blk.shape, float(len(made)), dtype=torch.float64)
-        made.append(out)
-        return out
+    def tagged(blk, out=None):
+        res = torch.full(blk.shape, float(len(made)), dtype=torch.float64)
+        made.append(res)
+        return res if out is None else out.copy_(res)
 
     new_empty = torch.Tensor.new_empty
 
