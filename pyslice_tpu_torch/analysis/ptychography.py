@@ -34,7 +34,18 @@ so the probe listed at R sits physically at c - R (c the base probe's
 centre). ``scan_grid_data`` takes a WFData sharded over a (frame, probe)
 mesh as it takes any other, and ``msp_reconstruct(mesh=)``
 splits every minibatch over the mesh's ranks (data parallelism; one
-all_reduce of the loss and the gradients a step).
+all_reduce of the loss and the gradients a step). ``msp_reconstruct``
+takes its data as a host array or as a tensor; a tensor is converted to
+amplitudes on the probe's device, a chunk of patterns at a time, so that
+a scan too large for a second copy stays where it is.
+
+Tracing (``utils.profiling.span``): ``msp.setup`` (the data's ingest and
+the solve's state), ``msp.step`` (one Adam step), inside it
+``msp.forward`` (the shift through the misfit), ``msp.backward`` (the
+gradients; the adjoint's own span, ``adjoint``, lies inside it on
+autograd's thread) and ``msp.update``. ``STATS`` counts the steps, the
+patterns and the waves (patterns x probe modes) the steps fitted, in this
+process.
 """
 
 from __future__ import annotations
@@ -47,7 +58,16 @@ import torch
 from ..core.dtypes import DOUBLE, SINGLE
 from ..physics.adjoint import multislice_diff
 from ..parallel import sharded
+from ..utils.profiling import span
 from .detectors import _scan_grid, frame_mean_intensity
+
+# msp_reconstruct's work in this process: Adam steps, and the patterns
+# and waves (patterns x probe modes) their minibatches put through the
+# multislice (a rank's share on a mesh)
+STATS = {"msp_steps": 0, "msp_patterns": 0, "msp_waves": 0}
+
+# patterns a chunk when a tensor's intensities become amplitudes
+INGEST_CHUNK = 64
 
 
 def scan_grid_data(wf_data, layer_index: int = -1):
@@ -77,6 +97,41 @@ def _detector_amplitudes(data4d) -> np.ndarray:
     """(N, nkx, nky) fftshifted intensities -> natural-order amplitudes."""
     return np.sqrt(np.maximum(
         np.fft.ifftshift(np.asarray(data4d), axes=(-2, -1)), 0.0))
+
+
+def _amplitudes_on(data, real: torch.dtype, device,
+                   chunk: int = INGEST_CHUNK) -> torch.Tensor:
+    """``_detector_amplitudes`` of ``data`` (an array or a tensor) on
+    ``device`` as ``real``, ``chunk`` patterns at a time, so that neither
+    the host nor the device makes a second copy of the whole scan. A
+    chunk that lives on the host takes ``_detector_amplitudes`` (NumPy,
+    the JAX package's bits: PyTorch's vectorised CPU square root is not
+    correctly rounded), a chunk on a card ``_amplitudes_torch`` there."""
+    if not isinstance(data, torch.Tensor):
+        data = np.asarray(data)
+    out = torch.empty(tuple(data.shape), dtype=real, device=device)
+    for i in range(0, data.shape[0], chunk):
+        blk = data[i:i + chunk]
+        if isinstance(blk, torch.Tensor) and blk.device.type != "cpu":
+            amp = _amplitudes_torch(blk)
+        else:
+            amp = torch.from_numpy(_detector_amplitudes(
+                blk.detach().numpy() if isinstance(blk, torch.Tensor)
+                else blk))
+        out[i:i + chunk] = amp.to(device=device, dtype=real)
+    return out
+
+
+def _amplitudes_torch(blk: torch.Tensor) -> torch.Tensor:
+    """``_detector_amplitudes`` in PyTorch on the tensor's device, in the
+    host path's types (an integer count becomes float64, as NumPy
+    promotes it; NumPy's ``maximum(x, 0)`` is ``where(x <= 0, 0, x)``,
+    which makes -0 into +0 and keeps a NaN)."""
+    if not blk.is_floating_point():
+        blk = blk.to(torch.float64)
+    blk = torch.fft.ifftshift(blk, dim=(-2, -1))
+    return torch.sqrt(torch.where(
+        blk <= 0, torch.zeros((), dtype=blk.dtype, device=blk.device), blk))
 
 
 def _epoch_batches(npos: int, nb: int, steps: int, seed: int) -> np.ndarray:
@@ -109,32 +164,38 @@ def _probe_center(probe) -> Tuple[float, float]:
     return (float(probe.xs[(nx + 1) // 2]), float(probe.ys[(ny + 1) // 2]))
 
 
-def _adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
-    """``optax.adam(lr)`` for one tensor: returns ``step(param, grad)``,
-    which gives the updated parameter. As optax, the second moment of a
-    complex gradient is |g|^2, one value an element (``torch.optim.Adam``
-    keeps one for each of the real and imaginary parts), the bias
-    corrections divide the moments, and the update is
-    -lr * mu_hat / (sqrt(nu_hat) + eps). For a complex parameter, pass
-    PyTorch's ``grad`` as it is: it is the conjugate of JAX's, which is
-    what the JAX package feeds optax."""
-    mu = nu = None
-    count = 0
+class _Adam:
+    """``optax.adam(lr)`` for one tensor: ``adam(param, grad)`` gives the
+    updated parameter. As optax, the second moment of a complex gradient
+    is |g|^2, one value an element (``torch.optim.Adam`` keeps one for
+    each of the real and imaginary parts), the bias corrections divide the
+    moments, and the update is -lr * mu_hat / (sqrt(nu_hat) + eps). For a
+    complex parameter, pass PyTorch's ``grad`` as it is: it is the
+    conjugate of JAX's, which is what the JAX package feeds optax. The
+    moments ``mu``, ``nu`` (None before the first step) and the step
+    ``count`` are attributes, so one step can be recomputed from the
+    state before it."""
 
-    def step(param: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
-        nonlocal mu, nu, count
-        if mu is None:
-            mu = torch.zeros_like(grad)
-            nu = torch.zeros_like(grad.real)
-        count += 1
-        mu = (1 - b1) * grad + b1 * mu
+    def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.mu = self.nu = None
+        self.count = 0
+
+    def __call__(self, param: torch.Tensor,
+                 grad: torch.Tensor) -> torch.Tensor:
+        b1, b2 = self.b1, self.b2
+        if self.mu is None:
+            self.mu = torch.zeros_like(grad)
+            self.nu = torch.zeros_like(grad.real)
+        self.count += 1
+        self.mu = (1 - b1) * grad + b1 * self.mu
         g2 = (grad.conj() * grad).real if grad.is_complex() else grad ** 2
-        nu = (1 - b2) * g2 + b2 * nu
-        mu_hat = mu / (1 - b1 ** count)
-        nu_hat = nu / (1 - b2 ** count)
-        return param + (-lr) * (mu_hat / (torch.sqrt(nu_hat) + eps))
-
-    return step
+        self.nu = (1 - b2) * g2 + b2 * self.nu
+        mu_hat = self.mu / (1 - b1 ** self.count)
+        nu_hat = self.nu / (1 - b2 ** self.count)
+        return param + (-self.lr) * (mu_hat / (torch.sqrt(nu_hat)
+                                               + self.eps))
 
 
 def _msp_loss(v, modes, pos_b, a_b, kx, ky, *, eV: float, dz: float, prec,
@@ -142,30 +203,44 @@ def _msp_loss(v, modes, pos_b, a_b, kx, ky, *, eV: float, dz: float, prec,
     """One minibatch's data misfit (plus the TV prior): the probe modes
     shifted to ``pos_b``, through ``multislice_diff``, to detector
     intensities; mutually incoherent modes add on the detector."""
-    ramp = _shift_ramps(kx, ky, pos_b)
-    psi_b = torch.fft.ifft2(torch.fft.fft2(modes)[None] * ramp[:, None])
-    nb, k_modes = psi_b.shape[:2]
-    exit_b = multislice_diff(psi_b.reshape(nb * k_modes, *psi_b.shape[2:]),
-                             v, kx, ky, eV=eV, dz=dz, precision=prec)
-    inten = torch.abs(torch.fft.fft2(exit_b)) ** 2
-    inten = inten.reshape(nb, k_modes, *inten.shape[1:]).sum(dim=1)
-    if loss == "poisson":
-        # Poisson NLL up to the model-free log I! term, with the log floor
-        # on the count scale.
-        i_meas = a_b ** 2
-        floor = 1e-3 * torch.mean(i_meas)
-        fit = torch.mean(inten - i_meas * torch.log(inten + floor))
-    else:
-        mag = torch.sqrt(inten + 1e-24)
-        fit = torch.mean((mag - a_b) ** 2)
-    if reg_tv > 0.0:
-        # isotropic smoothed total variation over each slice of V
-        dvx = torch.diff(v, dim=-2)
-        dvy = torch.diff(v, dim=-1)
-        tv = torch.mean(torch.sqrt(dvx[..., :, :-1] ** 2
-                                   + dvy[..., :-1, :] ** 2 + 1e-12))
-        fit = fit + reg_tv * tv
-    return fit
+    with span("msp.forward"):
+        ramp = _shift_ramps(kx, ky, pos_b)
+        psi_b = torch.fft.ifft2(torch.fft.fft2(modes)[None] * ramp[:, None])
+        nb, k_modes = psi_b.shape[:2]
+        exit_b = multislice_diff(
+            psi_b.reshape(nb * k_modes, *psi_b.shape[2:]), v, kx, ky, eV=eV,
+            dz=dz, precision=prec)
+        inten = torch.abs(torch.fft.fft2(exit_b)) ** 2
+        inten = inten.reshape(nb, k_modes, *inten.shape[1:]).sum(dim=1)
+        if loss == "poisson":
+            # Poisson NLL up to the model-free log I! term, with the log
+            # floor on the count scale.
+            i_meas = a_b ** 2
+            floor = 1e-3 * torch.mean(i_meas)
+            fit = torch.mean(inten - i_meas * torch.log(inten + floor))
+        else:
+            mag = torch.sqrt(inten + 1e-24)
+            fit = torch.mean((mag - a_b) ** 2)
+        if reg_tv > 0.0:
+            # isotropic smoothed total variation over each slice of V
+            dvx = torch.diff(v, dim=-2)
+            dvy = torch.diff(v, dim=-1)
+            tv = torch.mean(torch.sqrt(dvx[..., :, :-1] ** 2
+                                       + dvy[..., :-1, :] ** 2 + 1e-12))
+            fit = fit + reg_tv * tv
+        return fit
+
+
+def _rank_share(idx, mesh) -> np.ndarray:
+    """This rank's block of minibatch ``idx`` (all of it off a mesh), in
+    the mesh's row-major order, as JAX shards over all mesh devices."""
+    idx = np.asarray(idx)
+    if mesh is None:
+        return idx
+    from ..parallel.mesh import flat_index
+    n_loc = len(idx) // mesh.size()
+    r = flat_index(mesh)
+    return idx[r * n_loc:(r + 1) * n_loc]
 
 
 class _MspRun:
@@ -189,31 +264,30 @@ class _MspRun:
         self.kw = dict(eV=eV, dz=dz, prec=self.prec, loss=loss,
                        reg_tv=reg_tv)
         self.mesh = mesh
-        self.adam = {"v": _adam(lr_v)}
+        self.adam = {"v": _Adam(lr_v)}
         if update_probe:
-            self.adam["modes"] = _adam(lr_probe)
+            self.adam["modes"] = _Adam(lr_probe)
         if update_positions:
-            self.adam["pos"] = _adam(lr_pos)
+            self.adam["pos"] = _Adam(lr_pos)
 
-    def grads(self, idx):
+    def grads(self, idx, reduce: bool = True):
         """(loss, {name: gradient}) of minibatch ``idx`` for the parameters
-        being refined, averaged over the mesh's ranks."""
+        being refined, averaged over the mesh's ranks (``reduce=False``:
+        this rank's own, of its block of ``idx``)."""
         params = {k: getattr(self, k).detach().requires_grad_()
                   for k in self.adam}
         get = lambda k: params.get(k, getattr(self, k))
-        idx = np.asarray(idx)
-        if self.mesh is not None:
-            from ..parallel.mesh import flat_index
-            n_loc = len(idx) // self.mesh.size()
-            r = flat_index(self.mesh)
-            idx = idx[r * n_loc:(r + 1) * n_loc]
+        idx = _rank_share(idx, self.mesh)
+        STATS["msp_patterns"] += len(idx)
+        STATS["msp_waves"] += len(idx) * self.modes.shape[0]
         idx = torch.as_tensor(idx, device=self.amps.device).long()
         val = _msp_loss(get("v"), get("modes"), get("pos")[idx],
                         self.amps[idx], self.kx, self.ky, **self.kw)
-        grads = dict(zip(params, torch.autograd.grad(val,
-                                                     list(params.values()))))
+        with span("msp.backward"):
+            grads = dict(zip(params, torch.autograd.grad(
+                val, list(params.values()))))
         val = val.detach()
-        if self.mesh is not None:
+        if self.mesh is not None and reduce:
             from ..parallel.mesh import world_group
             w = self.mesh.size()
             group = world_group(self.mesh)
@@ -225,10 +299,12 @@ class _MspRun:
     def step(self, idx) -> torch.Tensor:
         """One Adam step on the parameters being refined; returns the
         minibatch loss."""
-        val, grads = self.grads(idx)
-        with torch.no_grad():
-            for k, g in grads.items():
-                setattr(self, k, self.adam[k](getattr(self, k), g))
+        with span("msp.step"):
+            val, grads = self.grads(idx)
+            with span("msp.update"), torch.no_grad():
+                for k, g in grads.items():
+                    setattr(self, k, self.adam[k](getattr(self, k), g))
+        STATS["msp_steps"] += 1
         return val
 
 
@@ -245,7 +321,9 @@ def msp_reconstruct(data4d, probe_positions, probe, n_slices: int,
     4D-STEM data by Adam descent through the multislice adjoint.
 
     Arguments and results as the JAX package's ``msp_reconstruct``:
-    data4d (npos, nkx, nky) fftshifted intensities; probe_positions
+    data4d (npos, nkx, nky) fftshifted intensities, an array or a tensor
+    (a tensor is made into amplitudes on the probe's device, chunk by
+    chunk, with no host copy); probe_positions
     (npos, 2) Angstrom; probe the illumination ``Probe`` (initial guess,
     grid, energy; its device is the run's); n_slices x dz the specimen;
     steps/batch/lr/lr_probe/lr_pos/seed the Adam schedule over shuffled
@@ -284,72 +362,78 @@ def _msp_setup(data4d, probe_positions, probe, n_slices: int, dz: float,
                probe_modes=None, loss: str = "amplitude",
                reg_tv: float = 0.0):
     """The checked inputs of ``msp_reconstruct`` as an ``_MspRun`` and its
-    (steps, batch) minibatch indices."""
-    prec = probe.precision
-    dev = probe.device
-    data = np.asarray(data4d)
-    npos = data.shape[0]
-    positions = np.asarray(probe_positions, np.float64)
-    if positions.shape[0] != npos:
-        raise ValueError(
-            f"data4d has {npos} patterns but probe_positions has "
-            f"{positions.shape[0]} entries")
-    if n_slices < 1:
-        raise ValueError(f"n_slices must be >= 1, got {n_slices}")
-    if loss not in ("amplitude", "poisson"):
-        raise ValueError(f"loss must be 'amplitude' or 'poisson', "
-                         f"got {loss!r}")
-    p0 = probe.array
-    if p0.dim() != 2:
-        raise ValueError("probe must be a single (nx, ny) Probe, "
-                         "not a batch")
-    rd = prec.np_real
-    if probe_modes is not None:
-        modes0 = torch.as_tensor(np.asarray(probe_modes),
-                                 device=dev).to(prec.complex)
-        if modes0.dim() != 3 or tuple(modes0.shape[1:]) != tuple(p0.shape):
+    (steps, batch) minibatch indices. ``data4d``, an array or a tensor,
+    becomes amplitudes on the probe's device a chunk at a time
+    (``_amplitudes_on``); the host makes no copy of a tensor."""
+    with span("msp.setup"):
+        prec = probe.precision
+        dev = probe.device
+        data = data4d if isinstance(data4d, torch.Tensor) else \
+            np.asarray(data4d)
+        npos = data.shape[0]
+        positions = np.asarray(probe_positions, np.float64)
+        if positions.shape[0] != npos:
             raise ValueError(
-                f"probe_modes must be (K, {p0.shape[0]}, {p0.shape[1]})")
-    elif n_modes > 1:
-        # mode 0 = the probe; mode j = the probe times a centred x/y
-        # gradient envelope at 10% amplitude
-        xs_c = np.asarray(probe.xs) - np.mean(probe.xs)
-        ys_c = np.asarray(probe.ys) - np.mean(probe.ys)
-        envs = []
-        for j in range(1, n_modes):
-            axis = (xs_c[:, None] if j % 2 else ys_c[None, :])
-            axis = axis / (np.abs(axis).max() + 1e-30)
-            env = 0.1 * axis ** ((j + 1) // 2) * np.ones(tuple(p0.shape))
-            envs.append(torch.as_tensor(env.astype(rd), device=dev))
-        modes0 = torch.cat([p0[None]] + [p0[None] * e for e in envs], dim=0)
-    else:
-        modes0 = p0[None]
-    amps = _detector_amplitudes(data)
+                f"data4d has {npos} patterns but probe_positions has "
+                f"{positions.shape[0]} entries")
+        if n_slices < 1:
+            raise ValueError(f"n_slices must be >= 1, got {n_slices}")
+        if loss not in ("amplitude", "poisson"):
+            raise ValueError(f"loss must be 'amplitude' or 'poisson', "
+                             f"got {loss!r}")
+        p0 = probe.array
+        if p0.dim() != 2:
+            raise ValueError("probe must be a single (nx, ny) Probe, "
+                             "not a batch")
+        rd = prec.np_real
+        if probe_modes is not None:
+            modes0 = torch.as_tensor(np.asarray(probe_modes),
+                                     device=dev).to(prec.complex)
+            if modes0.dim() != 3 or tuple(modes0.shape[1:]) != tuple(p0.shape):
+                raise ValueError(
+                    f"probe_modes must be (K, {p0.shape[0]}, {p0.shape[1]})")
+        elif n_modes > 1:
+            # mode 0 = the probe; mode j = the probe times a centred x/y
+            # gradient envelope at 10% amplitude
+            xs_c = np.asarray(probe.xs) - np.mean(probe.xs)
+            ys_c = np.asarray(probe.ys) - np.mean(probe.ys)
+            envs = []
+            for j in range(1, n_modes):
+                axis = (xs_c[:, None] if j % 2 else ys_c[None, :])
+                axis = axis / (np.abs(axis).max() + 1e-30)
+                env = 0.1 * axis ** ((j + 1) // 2) * np.ones(tuple(p0.shape))
+                envs.append(torch.as_tensor(env.astype(rd), device=dev))
+            modes0 = torch.cat([p0[None]] + [p0[None] * e for e in envs],
+                               dim=0)
+        else:
+            modes0 = p0[None]
+        as_dev = lambda a: torch.as_tensor(np.asarray(a).astype(rd),
+                                           device=dev)
+        amps = _amplitudes_on(data, prec.real, dev)
 
-    nb = npos if batch is None else int(min(batch, npos))
-    if mesh is not None and nb % mesh.size() != 0:
-        raise ValueError(
-            f"minibatch size {nb} must divide by the mesh's {mesh.size()} "
-            "devices (pass batch=...)")
-    batches = _epoch_batches(npos, nb, steps, seed)
-    if v_init is None:
-        v0 = torch.zeros((n_slices,) + tuple(p0.shape), dtype=prec.real,
-                         device=dev)
-    else:
-        v0 = torch.as_tensor(np.asarray(v_init).astype(rd), device=dev)
-        if tuple(v0.shape) != (n_slices,) + tuple(p0.shape):
-            raise ValueError(f"v_init shape {tuple(v0.shape)} != "
-                             f"{(n_slices,) + tuple(p0.shape)}")
+        nb = npos if batch is None else int(min(batch, npos))
+        if mesh is not None and nb % mesh.size() != 0:
+            raise ValueError(
+                f"minibatch size {nb} must divide by the mesh's "
+                f"{mesh.size()} devices (pass batch=...)")
+        batches = _epoch_batches(npos, nb, steps, seed)
+        if v_init is None:
+            v0 = torch.zeros((n_slices,) + tuple(p0.shape), dtype=prec.real,
+                             device=dev)
+        else:
+            v0 = torch.as_tensor(np.asarray(v_init).astype(rd), device=dev)
+            if tuple(v0.shape) != (n_slices,) + tuple(p0.shape):
+                raise ValueError(f"v_init shape {tuple(v0.shape)} != "
+                                 f"{(n_slices,) + tuple(p0.shape)}")
 
-    as_dev = lambda a: torch.as_tensor(np.asarray(a).astype(rd), device=dev)
-    run = _MspRun(as_dev(amps), as_dev(positions), v0, modes0,
-                  as_dev(probe.kxs), as_dev(probe.kys), lr_v=float(lr),
-                  lr_probe=float(lr_probe), lr_pos=float(lr_pos),
-                  eV=float(probe.eV), dz=float(dz),
-                  update_probe=bool(update_probe),
-                  update_positions=bool(update_positions), loss=str(loss),
-                  reg_tv=float(reg_tv), mesh=mesh)
-    return run, batches
+        run = _MspRun(amps, as_dev(positions), v0, modes0,
+                      as_dev(probe.kxs), as_dev(probe.kys), lr_v=float(lr),
+                      lr_probe=float(lr_probe), lr_pos=float(lr_pos),
+                      eV=float(probe.eV), dz=float(dz),
+                      update_probe=bool(update_probe),
+                      update_positions=bool(update_positions), loss=str(loss),
+                      reg_tv=float(reg_tv), mesh=mesh)
+        return run, batches
 
 
 def _uniform_step(axis, name: str) -> float:
@@ -642,7 +726,7 @@ def epie_reconstruct(data4d, probe_positions, probe, n_iters: int = 50,
             torch.as_tensor(np.asarray(obj_init), device=dev).to(
                 prec.complex))
     obj, pr, losses = _epie_run(
-        as_dev(_detector_amplitudes(data)), as_dev(positions), obj0, p0,
+        _amplitudes_on(data, prec.real, dev), as_dev(positions), obj0, p0,
         as_dev(probe.kxs), as_dev(probe.kys), float(alpha), float(beta),
         int(n_iters), bool(update_probe))
     return dict(object=obj.cpu().numpy(), probe=pr.cpu().numpy(),

@@ -9,7 +9,7 @@ differentiable end to end:
     adjoint; the CUDA chains on the card) -> detector amplitudes
 
 so the gradient of the misfit with respect to the coordinates is exact,
-and an Adam loop (``analysis.ptychography._adam``, optax's update) refines
+and an Adam loop (``analysis.ptychography._Adam``, optax's update) refines
 a perturbed model to the data. The gradient reaches the positions through
 the rasterizer's torch ops, ``recip[s] += ...`` included. The JAX package
 compiles each solve; here the steps run as an eager loop.
@@ -28,7 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..analysis.ptychography import (_adam, _detector_amplitudes,
+from ..analysis.ptychography import (_Adam, _amplitudes_on,
                                      _epoch_batches, _shift_ramps)
 from ..core.constants import wavelength
 from ..physics.aberrations import Aberrations
@@ -109,7 +109,7 @@ def refine_structure(data4d, scan_positions, probe, positions0, types,
     batches = _epoch_batches(data.shape[0], nb, steps, seed)
 
     as_dev = lambda a: torch.as_tensor(np.asarray(a).astype(rd), device=dev)
-    amps, scan_t = as_dev(_detector_amplitudes(data)), as_dev(scan)
+    amps, scan_t = _amplitudes_on(data, prec.real, dev), as_dev(scan)
     kx, ky = as_dev(probe.kxs), as_dev(probe.kys)
     p0 = probe.array
     eV = float(probe.eV)
@@ -117,7 +117,7 @@ def refine_structure(data4d, scan_positions, probe, positions0, types,
     # Adam's moments from accumulating noise there.
     mask = torch.tensor([1.0, 1.0, 0.0], dtype=prec.real, device=dev)
     params = {"pos": as_dev(pos0)}
-    adams = {"pos": _adam(lr)}
+    adams = {"pos": _Adam(lr)}
     losses = []
     for idx in batches:
         idx = torch.as_tensor(idx, device=dev).long()
@@ -219,7 +219,7 @@ def refine_aberrations(data4d, scan_positions, probe,
     batches = _epoch_batches(data.shape[0], nb, steps, seed)
 
     as_dev = lambda a: torch.as_tensor(np.asarray(a).astype(rd), device=dev)
-    amps, scan_t = as_dev(_detector_amplitudes(data)), as_dev(scan)
+    amps, scan_t = _amplitudes_on(data, prec.real, dev), as_dev(scan)
     kx, ky = as_dev(probe.kxs), as_dev(probe.kys)
     basis = as_dev(terms)
     p0k = torch.fft.fft2(p0)
@@ -228,7 +228,7 @@ def refine_aberrations(data4d, scan_positions, probe,
                                 dtype=prec.real, device=dev)
                     if v_init is None else as_dev(v_init)),
               "c": torch.zeros(len(labels), dtype=prec.real, device=dev)}
-    adams = {"v": _adam(lr), "c": _adam(lr_ab)}
+    adams = {"v": _Adam(lr), "c": _Adam(lr_ab)}
     losses = []
     for idx in batches:
         idx = torch.as_tensor(idx, device=dev).long()
@@ -319,7 +319,7 @@ def refine_structure_tilt_series(datasets, scan_positions, probe,
         if scan.shape[0] != data.shape[0]:
             raise ValueError(f"tilt {t}: {data.shape[0]} patterns but "
                              f"{scan.shape[0]} scan positions")
-        amps_t.append(as_dev(_detector_amplitudes(data)))
+        amps_t.append(_amplitudes_on(data, prec.real, dev))
         scans_t.append(as_dev(scan))
         nb = data.shape[0] if batch is None else int(min(batch,
                                                          data.shape[0]))
@@ -332,7 +332,7 @@ def refine_structure_tilt_series(datasets, scan_positions, probe,
     ctr_t = as_dev(ctr)
     kx, ky = as_dev(probe.kxs), as_dev(probe.kys)
     params = {"pos": as_dev(pos0)}
-    adams = {"pos": _adam(lr)}
+    adams = {"pos": _Adam(lr)}
     losses = []
     counters = [0] * n_tilts
     for s in range(steps):

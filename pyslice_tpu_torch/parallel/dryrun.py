@@ -380,8 +380,9 @@ class Rank:
             mat, pp[:4], precision=calc.precision))
 
     def msp(self, cfg: dict) -> None:
-        """msp_reconstruct(mesh=) and the mesh-averaged gradients of its
-        first minibatch."""
+        """msp_reconstruct(mesh=), the mesh-averaged gradients of its
+        first minibatch, and this rank's own V gradient of its block of
+        that minibatch (``msp_share``, ``msp_grad_local_v``)."""
         from ..analysis import ptychography as pt
         from ..physics.probe import Probe
         with np.load(self.out / cfg["file"]) as z:
@@ -401,6 +402,10 @@ class Rank:
         self.put("msp_grad_loss", np.asarray(float(loss)))
         for k, g in grads.items():
             self.put("msp_grad_" + k, g)
+        # this rank's own share, before the mean over the ranks
+        self.put("msp_share", pt._rank_share(batches[0], self.mesh))
+        _, grads = run.grads(batches[0], reduce=False)
+        self.put("msp_grad_local_v", grads["v"])
 
     def finish(self) -> None:
         import torch

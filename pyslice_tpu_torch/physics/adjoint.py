@@ -59,6 +59,7 @@ from ..core.constants import interaction_parameter, wavelength as _wavelength
 from ..core.dtypes import Precision, get_precision
 from ..ops import config as ops_config
 from ..ops import fused_step_adjoint
+from ..utils.profiling import span
 from .propagate import (fused_family, multislice, propagator, tilt_tangents,
                         transmission)
 
@@ -122,8 +123,10 @@ class _MultisliceDiff(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_exit):
         exit_wave, potential_szy = ctx.saved_tensors
-        psi_grad, v_grad = _backward(ctx.cfg, exit_wave, potential_szy,
-                                     ctx.kxs, ctx.kys, ctx.ksq, grad_exit)
+        with span("adjoint"):
+            psi_grad, v_grad = _backward(ctx.cfg, exit_wave, potential_szy,
+                                         ctx.kxs, ctx.kys, ctx.ksq,
+                                         grad_exit)
         return (psi_grad if ctx.needs_input_grad[0] else None,
                 v_grad if ctx.needs_input_grad[1] else None,
                 None, None, None, None)

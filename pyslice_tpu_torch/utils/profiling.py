@@ -30,6 +30,12 @@ The spans, nested as the calls nest (``pyslice.`` + the name):
     collective.all_to_all,             the collectives of parallel.sharded
     collective.all_reduce,
     collective.all_gather
+    msp.setup, msp.step,               msp_reconstruct: the ingest and the
+    msp.forward, msp.backward,         state; each Adam step, its shift
+    msp.update                         through the misfit, its gradients,
+                                       its update
+    adjoint                            multislice_diff's backward (on
+                                       autograd's thread on the card)
 
 Device time a span: ``trace`` yields the profiler, whose
 ``key_averages()`` has a row per span name (``pyslice.*``) with the device

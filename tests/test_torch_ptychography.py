@@ -124,7 +124,7 @@ def test_adam_equals_optax(is_complex):
     opt = optax.adam(0.03)
     jp = jnp.asarray(p0)
     state = opt.init(jp)
-    step = tptycho._adam(0.03)
+    step = tptycho._Adam(0.03)
     tp = torch.from_numpy(p0)
     for g in grads:
         upd, state = opt.update(jnp.asarray(g), state)

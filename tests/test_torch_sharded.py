@@ -136,7 +136,16 @@ def ranks(request, tmp_path_factory):
     f, p = MESHES[request.param]
     res = dryrun.launch(out, f * p, device="cpu", mesh=request.param,
                         config=_config(out), timeout=LAUNCH_S)
-    return request.param, Run(res)
+    run = Run(res)
+    run.out = out
+    return request.param, run
+
+
+def _msp_inputs(run):
+    """The msp problem as the ranks read it, from their own config's file:
+    the references below start from the same bits as the ranks."""
+    with np.load(run.out / "msp.npz") as z:
+        return {k: z[k] for k in z.files}
 
 
 def _jax_refs(shape, run):
@@ -201,14 +210,14 @@ def _jax_refs(shape, run):
                                                precision=JDOUBLE)
     out["smatrix_exit"] = np.asarray(jsm.smatrix_exit_kspace(
         sm, PG[:4], precision=JDOUBLE))
-    pm = _problem()
+    pm = _msp_inputs(run)
     jprobe = JProbe(pm["xs"], pm["ys"], MRAD, EV, array=pm["probe"],
                     precision=JDOUBLE)
     # unsharded: the JAX package's msp_reconstruct(mesh=) stops inside
     # shard_map on this JAX (its adjoint's custom VJP returns a cotangent
     # that varies over the mesh axes for a replicated input); the mean of
     # the ranks' local-mean gradients is the global-mean gradient anyway
-    res = jptycho.msp_reconstruct(pm["inten"], pm["scan"], jprobe,
+    res = jptycho.msp_reconstruct(pm["data"], pm["scan"], jprobe,
                                   n_slices=NZ, dz=DZ, **MSP)
     for k, v in res.items():
         out["msp_" + k] = np.asarray(v)
@@ -269,13 +278,22 @@ def test_msp_minibatch_gradient_matches_single_process(ranks):
     single-process gradient of the whole minibatch."""
     from pyslice_tpu_torch.analysis import ptychography as tp
     _, run = ranks
-    pm = _problem()
+    pm = _msp_inputs(run)
     probe = tt.Probe(pm["xs"], pm["ys"], MRAD, EV, array=pm["probe"],
                      precision="double", device="cpu")
-    r, batches = tp._msp_setup(pm["inten"], pm["scan"], probe, NZ, DZ,
+    r, batches = tp._msp_setup(pm["data"], pm["scan"], probe, NZ, DZ,
                                **MSP)
+    # each rank's own gradient of its block first, so that a mean that
+    # misses names the rank that computed otherwise
+    own = {}
+    for arrays, rec in run.res:
+        share = arrays["msp_share"]
+        _, g = r.grads(share)
+        own[rec["rank"]] = (share.tolist(), _rel(arrays["msp_grad_local_v"],
+                                                 g["v"].numpy()))
+    assert all(e <= 1e-10 for _, e in own.values()), own
     loss, grads = r.grads(batches[0])
-    assert _rel(run.rep("msp_grad_v"), grads["v"].numpy()) <= 1e-10
+    assert _rel(run.rep("msp_grad_v"), grads["v"].numpy()) <= 1e-10, own
     assert abs(float(run.rep("msp_grad_loss")) - float(loss)) <= \
         1e-12 * abs(float(loss))
 
