@@ -46,9 +46,12 @@ Phases, each printing one line (or a few) and failing hard:
    nz - 1 times a frame, HAADF finite and positive;
 9. the adjoint's kernels against their plain versions: K7 at 16 pairs x
    1024^2 and K8 at 16 pairs x 1023^2 (mid mode with planes and with the
-   phase, last mode; each with its tile plan and persistent grid; vbar of
-   two launches bit-identical), then each whole adjoint chain (14 slices)
-   against its plain twin on lambda_0 and vbar;
+   phase, last mode; each with its plan and persistent grid, its launches
+   counted; vbar of two launches bit-identical), then each whole adjoint
+   chain (14 slices) against its plain twin on lambda_0 and vbar; at 1023
+   K8 takes its register engine, so K8's tile engine is checked and timed
+   on its own at 16 pairs x 1152^2, its launches counted;
+   ``python3 chip_smoke.py --phase 9`` runs phases 1, 2, 9 and 10b alone;
 10. multislice ptychography at 1024^2 and at 1023^2: frame 0 of the boxes
    of phases 5 and 8, data from the kernel forward (64 positions on an
    8 x 8 scan), the gradients of one minibatch loss (V and probe) through
@@ -207,6 +210,8 @@ MAX_REL = 1e-4
 MAX_RESIDUAL = 1e-6
 N_PROBES, N_GRID, N_SLICES, N_FRAMES = 16, 1024, 14, 10
 N_ODD = 1023                 # int(102.25 / 0.1) + 1
+N_TILES = 1152               # an axis outside REG_MR_AXES: the tile engines
+MEP_PAIRS = 64               # the MEP cell's K8: 16 positions x 4 modes
 QUICK_FRAMES = 100           # BASELINE.json config 2: 100 frames, 1 probe
 CSRC = "pyslice_tpu_torch/ops/csrc/"
 # kernel -> (name, source, the TPU kernel it replaces)
@@ -327,6 +332,45 @@ def kernel_name(mangled):
     return name
 
 
+# the register engines, whose design rests on holding a row without spills
+REG_KERNELS = {"k4": "row_pass_mr_reg_kernel", "k5": "col_pass_mr_reg_kernel",
+               "k8": "row_pass_bwd_mr_reg_kernel"}
+
+
+def ptxas_usage(log):
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from an nvcc -Xptxas -v log."""
+    usage, name, spills = {}, None, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name, spills = m[1], None
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spills = (int(m[1]), int(m[2]))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            require(spills is not None, f"{name}: no spill line")
+            usage[name] = (int(m[1]), *spills)
+            name = None
+    return usage
+
+
+def register_engines(log):
+    """Require 0 bytes of spills of every instantiation of each register
+    kernel of REG_KERNELS in the build's -Xptxas -v log; returns
+    {key: {"registers": [per instantiation], "spill_bytes": 0}}."""
+    usage = ptxas_usage(log)
+    out = {}
+    for key, kern in REG_KERNELS.items():
+        found = [u for m, u in usage.items() if kernel_name(m) == kern]
+        require(found, f"{kern}: not in the build's -Xptxas -v log")
+        spilled = sum(st + ld for _, st, ld in found)
+        require(spilled == 0, f"{kern} spills {spilled} bytes")
+        out[key] = {"registers": [r for r, _, _ in found], "spill_bytes": 0}
+        print(f"    {key.upper()} {kern}: registers {out[key]['registers']}, "
+              "0 bytes spilled")
+    return out
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -350,13 +394,13 @@ def launches_of(fn):
 
 def want_counts(**n):
     """Launch counts with every kernel at 0 but those given. The phases
-    that count launches run K4 and K5 only at 1023, which takes their
-    register engine, so "k4_regs" and "k5_regs" follow "k4" and "k5"
-    unless given."""
+    that count launches run K4, K5 and K8 only at 1023, which takes their
+    register engine, so "k4_regs", "k5_regs" and "k8_regs" follow "k4",
+    "k5" and "k8" unless given."""
     from pyslice_tpu_torch.ops import fused_step as fs
     want = dict.fromkeys(fs.launches, 0)
     want.update(n)
-    for k in ("k4", "k5"):
+    for k in ("k4", "k5", "k8"):
         if f"{k}_regs" not in n:
             want[f"{k}_regs"] = want[k]
     return want
@@ -470,7 +514,7 @@ def records_for(errs, timings, bounds, shape):
     return records
 
 
-def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES, n_tiles=1152):
+def mr_kernel_phase(dev, P=N_PROBES, n=N_ODD, nz=N_SLICES, n_tiles=N_TILES):
     """Phase 4: K4, K5 at P x n^2 and K6 at 1 x n^2 and 1 x 1024^2 against
     their plain versions; K4's and K5's tile engine also at n_tiles^2 (K4
     at P planes, K5 at P and 2P), an axis the register engine does not
@@ -956,17 +1000,108 @@ def check_rel(name, got, want):
     return d
 
 
+def k8_check(dev, g, P, n, sigma, engine):
+    """K8 at P pairs x n^2 on ``engine`` ("regs" at the axes of REG_MR_AXES,
+    "tiles" at every other) against its plain version in mid mode with the
+    complex plane and the phase and in last mode: each launch counted in
+    "k8" (and in "k8_regs" on the registers), two launches the same bits,
+    pairs and vbar; then timed in ``mid`` with the plane. Returns its
+    record: shape, error, ms, plain_ms, bound_ms, plan and grid."""
+    import torch
+    from pyslice_tpu_torch.ops import fused_step_adjoint as fa
+    from pyslice_tpu_torch.ops import fused_step_odd as fo
+
+    regs = engine == "regs"
+    require(isinstance(fo.pair_plan(n, n), fo.RegMrPlan) == regs,
+            f"K8 at {n} does not plan the {engine}")
+    state = torch.randn((2 * P, n, n), dtype=torch.complex64, device=dev,
+                        generator=g)
+    sv = torch.randn((n, n), device=dev, generator=g) * 20.0
+    t = torch.complex(torch.cos(sv), torch.sin(sv))
+    err, what = 0.0, f"K8 {engine} {P}x{n}^2"
+    for mode, label, tt in (("mid", "planes", t), ("mid", "phase", sv),
+                            ("last", "", None)):
+        got, counts, _ = launches_of(
+            lambda: fa.row_pass_mr_bwd(mode, state, tt, sigma))
+        require(counts == want_counts(k8=1, k8_regs=int(regs)),
+                f"{what} {mode} {label}: launches {counts}")
+        ran = fo.last_launch["k8"].get("engine")
+        require(ran == engine, f"{what} ran {ran}")
+        want = fa._plain_row_pass_bwd(mode, state, tt, sigma)
+        err = max(err, check(f"{what} {mode:4s} {label:6s} pairs", got[0],
+                             want[0]))
+        check_rel(f"{what} {mode:4s} {label:6s} vbar", got[1], want[1])
+        again = fa.row_pass_mr_bwd(mode, state, tt, sigma)
+        torch.cuda.synchronize()
+        require(torch.equal(again[0], got[0])
+                and torch.equal(again[1], got[1]),
+                f"{what} {mode} {label}: two launches differ")
+        del got, want, again
+    vb = torch.empty((n, n), device=dev)
+    rec = {"shape": f"{P} pairs x {n}^2", "max_abs_err": err,
+           "ms": cuda_ms(lambda: fa.row_pass_mr_bwd("mid", state, t, sigma,
+                                                    out=state, vbar=vb)),
+           "plain_ms": cuda_ms(lambda: fa._plain_row_pass_bwd(
+               "mid", state, t, sigma)),
+           "bound_ms": kernel_bound("pairs", P, n)["bound_ms"],
+           "plan": dict(fo.last_launch["k8"])}
+    print(f"  {what}: two launches the same bits in every mode; mid "
+          f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms; plan and grid {rec['plan']}")
+    return rec
+
+
+def k5_adjoint_check(dev, g, planes, n, lam):
+    """K5 on the adjoint's pair stream (``planes`` x n^2, conj(P)) against
+    its plain version: one launch on the register engine, two launches the
+    same bits; then timed. Returns its record: error, ms, plain_ms,
+    bound_ms, plan and grid."""
+    import numpy as np
+    import torch
+    from pyslice_tpu_torch.ops import fused_step as fs
+    from pyslice_tpu_torch.ops import fused_step_odd as fo
+
+    kxs = np.fft.fftfreq(n, 0.1)
+    prop = torch.conj_physical(fs.fresnel_plane(kxs, kxs, lam, 0.5,
+                                                device=dev))
+    buf = torch.randn((planes, n, n), dtype=torch.complex64, device=dev,
+                      generator=g)
+    what = f"K5 adjoint {planes}x{n}^2"
+    got, counts, _ = launches_of(lambda: fo.col_pass_mr(buf, prop))
+    require(counts == want_counts(k5=1), f"{what}: launches {counts}")
+    plan = dict(fo.last_launch["k5"])
+    require(plan["engine"] == "regs", f"{what} ran {plan['engine']}")
+    err = check(what, got, fs._plain_col_pass(buf, prop))
+    require(torch.equal(fo.col_pass_mr(buf, prop), got),
+            f"{what}: two launches differ")
+    del got
+    rec = {"shape": f"{planes}x{n}^2", "max_abs_err": err,
+           "ms": cuda_ms(lambda: fo.col_pass_mr(buf, prop, out=buf)),
+           "plain_ms": cuda_ms(lambda: fs._plain_col_pass(buf, prop)),
+           "bound_ms": kernel_bound("pass", planes, n)["bound_ms"],
+           "plan": plan}
+    print(f"  {what}: two launches the same bits; {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms; plan "
+          f"and grid {plan}")
+    return rec
+
+
 def adjoint_kernel_phase(dev, P=N_PROBES, nz=N_SLICES,
                          sizes=(("k7", N_GRID), ("k8", N_ODD))):
     """Phase 9: K7 and K8 on P pairs against their plain version, and each
-    adjoint chain against its plain twin. Returns the JSON records keyed by
-    kernel."""
+    adjoint chain against its plain twin. At 1023 K8 takes its register
+    engine (every launch counted in "k8_regs"); it is also held at the MEP
+    cell's shapes, K8 at MEP_PAIRS pairs and K5 on their 2 x MEP_PAIRS
+    planes (the records' ``at_<P>_pairs``, ``at_<2P>_planes``), and its tile
+    engine at P pairs x N_TILES^2 (``tiles_at_<n>``). Returns the JSON
+    records keyed by kernel."""
     import numpy as np
     import torch
     from pyslice_tpu_torch.core.constants import (interaction_parameter,
                                                   wavelength)
     from pyslice_tpu_torch.ops import fused_step as fs
     from pyslice_tpu_torch.ops import fused_step_adjoint as fa
+    from pyslice_tpu_torch.ops import fused_step_odd as fo
 
     lam, sigma = wavelength(100e3), interaction_parameter(100e3)
     kernels = {"k7": (fa.row_pass_bwd, fa.fused_adjoint_chain),
@@ -983,7 +1118,12 @@ def adjoint_kernel_phase(dev, P=N_PROBES, nz=N_SLICES,
         # last mode reads no transmission: one case covers it
         for mode, label, tt in (("mid", "planes", t), ("mid", "phase", sv),
                                 ("last", "", None)):
-            got = row_bwd(mode, state, tt, sigma)
+            got, counts, _ = launches_of(
+                lambda: row_bwd(mode, state, tt, sigma))
+            want_n = (want_counts(k7=1) if key == "k7" else
+                      want_counts(k8=1, k8_regs=int(n in fo.REG_MR_AXES)))
+            require(counts == want_n, f"{key.upper()} {mode} {label}: "
+                    f"launches {counts}, expected {want_n}")
             want = fa._plain_row_pass_bwd(mode, state, tt, sigma)
             err = max(err, check(f"{key.upper()} {mode:4s} {label:6s} pairs",
                                  got[0], want[0]))
@@ -1021,10 +1161,16 @@ def adjoint_kernel_phase(dev, P=N_PROBES, nz=N_SLICES,
                                    {key: kernel_bound("pairs", P, n)},
                                    f"{P} pairs x {n}^2, mid"))
         plan = dict(fs.last_launch[key])
-        print(f"    {key.upper()} tile plan and persistent grid at {P} pairs "
+        print(f"    {key.upper()} plan and persistent grid at {P} pairs "
               f"x {n}^2: {plan}")
         records[key]["plan"] = plan
         del state
+    records["k8"][f"at_{MEP_PAIRS}_pairs"] = k8_check(
+        dev, g, MEP_PAIRS, N_ODD, sigma, "regs")
+    records["k5"] = {f"at_{2 * MEP_PAIRS}_planes": k5_adjoint_check(
+        dev, g, 2 * MEP_PAIRS, N_ODD, lam)}
+    records["k8"][f"tiles_at_{N_TILES}"] = k8_check(dev, g, P, N_TILES, sigma,
+                                                   "tiles")
     return records
 
 
@@ -1088,7 +1234,7 @@ def step_want(keys, nz):
     row, col, bwd = keys
     want = dict.fromkeys(fs.launches, 0)
     want.update({row: nz + 1, col: 2 * (nz - 1), bwd: nz - 1})
-    for k in ("k4", "k5"):             # K4, K5 at 1023: the register engine
+    for k in ("k4", "k5", "k8"):       # at 1023: the register engine
         want[f"{k}_regs"] = want[k]
     return want
 
@@ -3195,6 +3341,7 @@ def main():
             print(f"    {kernel_name(line.split(chr(39))[1])}:")
         elif "registers" in line or "spill" in line or line.startswith("---"):
             print(f"    {line.strip()}")
+    ptxas = register_engines(b.log)
     if sys.argv[1:] == ["--phase", "22"]:
         # phase 22 alone (a quicker check of the multi-GPU path): no
         # kernels line and no result line
@@ -3206,6 +3353,16 @@ def main():
     if sys.argv[1:] == ["--phase", "4b"]:
         print("[4b] the time FFT kernel alone:")
         print(json.dumps(time_fft_phase(dev)))
+        print(card)
+        return 0
+    if sys.argv[1:] == ["--phase", "9"]:
+        # the adjoint alone: phases 9 and 10b (K8 and the 1023^2 msp steps)
+        print("[9] the adjoint's kernels and chains alone:")
+        records = adjoint_kernel_phase(dev)
+        records["k8"]["ptxas"] = ptxas["k8"]
+        print(json.dumps(records))
+        print(f"[10b] multislice ptychography at {N_ODD}^2 (K4, K5, K8):")
+        msp_phase(dev, card, 102.25, N_ODD, ("k4", "k5", "k8"))
         print(card)
         return 0
     if sys.argv[1:] == ["--phase", "23"]:
@@ -3236,8 +3393,10 @@ def main():
     print(f"[8] STEM at {N_ODD}^2 (kernels K4, K5):")
     odd = odd_stem_phase(dev, card, traj)
     print(f"[9] adjoint kernels K7 at {N_PROBES} pairs x {N_GRID}^2, K8 at "
-          f"{N_PROBES} pairs x {N_ODD}^2, and the adjoint chains:")
-    records.update(adjoint_kernel_phase(dev))
+          f"{N_PROBES} and {MEP_PAIRS} pairs x {N_ODD}^2 (K5 on "
+          f"{2 * MEP_PAIRS} planes), and the adjoint chains:")
+    for k, rec in adjoint_kernel_phase(dev).items():   # K5's joins phase 4's
+        records.setdefault(k, {}).update(rec)
     print(f"[10a] multislice ptychography at {N_GRID}^2 (A, B, K7):")
     k7, data, calc, traj = msp_phase(dev, card, 102.35, N_GRID,
                                      ("a", "b", "k7"))
@@ -3301,6 +3460,8 @@ def main():
             counts[k] = counts.get(k, 0) + v
     for k, rec in records.items():
         rec["launches"] = counts[k]
+    for k, usage in ptxas.items():
+        records[k]["ptxas"] = usage
     print(json.dumps({"kernels": [records[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -60,13 +60,14 @@ from ..core.dtypes import SINGLE, as_real
 # Launches of each kernel since the last reset (the wrappers add one per
 # launch; nothing else touches them): A, B, C here, K4 and K5 in
 # ops.fused_step_odd, K6 in ops.fused_step_resident, K7 and K8 in
-# ops.fused_step_adjoint, the time FFT in analysis.time_fft. "k4" and "k5"
-# count every K4 and K5 launch, "k4_regs" and "k5_regs" those of them on
-# the register engine. "time_fft_plain" is no launch: it counts the CUDA
-# blocks that analysis.tacaw's rule sent to the plain torch.fft chain.
+# ops.fused_step_adjoint, the time FFT in analysis.time_fft. "k4", "k5" and
+# "k8" count every K4, K5 and K8 launch, "k4_regs", "k5_regs" and "k8_regs"
+# those of them on the register engine. "time_fft_plain" is no launch: it
+# counts the CUDA blocks that analysis.tacaw's rule sent to the plain
+# torch.fft chain.
 launches = {"a": 0, "b": 0, "c": 0, "k4": 0, "k4_regs": 0, "k5": 0,
-            "k5_regs": 0, "k6": 0, "k7": 0, "k8": 0, "time_fft": 0,
-            "time_fft_plain": 0}
+            "k5_regs": 0, "k6": 0, "k7": 0, "k8": 0, "k8_regs": 0,
+            "time_fft": 0, "time_fft_plain": 0}
 
 # Above this many bytes for the (nz, nx, ny) complex64 transmission stack,
 # kernel A takes sigma*V and evaluates cos/sin itself: half the memory, at
@@ -96,7 +97,8 @@ class Build:
     libs: dict          # source stem -> ctypes.CDLL
     paths: dict         # source stem -> shared library path
     seconds: float      # compile + load time of this process's build()
-    log: str            # nvcc's output (-Xptxas -v resource usage)
+    log: str            # nvcc's output (-Xptxas -v resource usage), kept
+                        # beside each library and read back when cached
 
 
 _build = None
@@ -124,8 +126,9 @@ def _sources_digest() -> str:
 
 def build() -> Build:
     """Compile every ``csrc/<stem>.cu`` of ``SOURCES`` with nvcc for sm_90a
-    (once per content hash, into ``ops/build/``; one nvcc process per
-    source, all started together) and load them. Raises if nvcc fails."""
+    (once per content hash, into ``ops/build/``, nvcc's output beside each
+    library as ``<stem>_<hash>.ptxas.txt``; one nvcc process per source, all
+    started together) and load them. Raises if nvcc fails."""
     global _build
     if _build is not None:
         return _build
@@ -133,7 +136,7 @@ def build() -> Build:
     digest = _sources_digest()
     paths = {stem: _BUILD_DIR / f"{stem}_{digest}.so" for stem in SOURCES}
     todo = {stem: so for stem, so in paths.items() if not so.exists()}
-    log = ""
+    logs = {stem: so.with_suffix(".ptxas.txt") for stem, so in paths.items()}
     if todo:
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
@@ -150,8 +153,10 @@ def build() -> Build:
                 f"{stem}.cu (exit {procs[stem][1].returncode}):\n{outs[stem]}"
                 for stem in failed))
         for stem, (tmp, _) in procs.items():
+            logs[stem].write_text(outs[stem])
             os.replace(tmp, todo[stem])
-            log += f"--- {stem}.cu\n{outs[stem]}"
+    log = "".join(f"--- {stem}.cu\n{logs[stem].read_text()}"
+                  for stem in SOURCES if logs[stem].exists())
     libs = {stem: _bind(ctypes.CDLL(str(so))) for stem, so in paths.items()}
     _build = Build(libs=libs, paths=paths, seconds=time.perf_counter() - t0,
                    log=log)
@@ -170,6 +175,7 @@ _ARGTYPES = {
     "fs_resident_barriers": "iiiip",
     "fs_row_pass_bwd": "ppppppiiiifipp",
     "fs_row_pass_bwd_mr": "ppppppiiiifiiipp",
+    "fs_row_pass_bwd_mr_reg": "ppppppiiiifiipp",
     "tf_time_fft": "pppiiiillllipp",
 }
 

@@ -39,17 +39,26 @@ halves swap values by shuffle for the vbar sum, which each thread keeps
 in its own shared-memory slots. Its tile plan is ``fused_step.pair_reg_plan``, and
 ``fused_step.last_launch["k7"]`` holds its last plan and grid.
 
-K8 runs on the persistent producer/consumer tiles of K4 and K5
-(``csrc/tile_async.cuh``): a block walks its row tiles, each through every
-pair in order, while its producer warps copy the next pair of the same
-rows; its tile plan is ``fused_step_odd.pair_tile_plan``, and
-``fused_step_odd.last_launch["k8"]`` holds its last plan and grid.
+K8 runs, as K4 and K5 do, on the register engine of
+``csrc/fft_regs_mr.cuh`` on the axes of ``fused_step_odd.REG_MR_AXES``
+(1023, 513): a block holds four rows of both members, each thread a
+group's values of one member's row in registers through both transforms,
+the two members of a position meet through a hand-off row in shared
+memory, and the next pair's rows are copied into shared memory while this
+pair transforms; on every other axis it runs on the persistent
+producer/consumer tiles of ``csrc/tile_async.cuh``, whose producer warps
+copy the next pair of the same rows while the consumers transform this
+one. Either way a block walks its row tiles, each through every pair in
+order. ``fused_step_odd.pair_plan`` picks the engine and plan from the
+shape alone, and ``fused_step_odd.last_launch["k8"]`` holds its last plan
+and grid, with its ``engine``.
 
 Each wrapper takes its plain ``torch.fft`` version for a tensor on the CPU,
 and for a CUDA tensor launches its kernel or raises; ``launches["k7"]`` /
-``launches["k8"]`` count the launches. ``fused_adjoint_chain[_odd]`` run
-the chain on the wrappers, ``fused_adjoint_chain_plain`` on the plain
-versions (the reference both are held to).
+``launches["k8"]`` count the launches, ``launches["k8_regs"]`` K8's on the
+register engine. ``fused_adjoint_chain[_odd]`` run the chain on the
+wrappers, ``fused_adjoint_chain_plain`` on the plain versions (the
+reference both are held to).
 
 Contract, as the JAX functions' except for the conjugation convention:
 ``lam_ct`` is PyTorch's exit-wave grad and the returned ``lam0`` is
@@ -69,7 +78,7 @@ from .fused_step import (_check_cuda, _check_state, _into, _out_for,
                          _record_reg_launch, _transmission, _twiddles, build,
                          col_pass, fresnel_plane, launches, pair_reg_plan,
                          row_pass, supported_size, transmission_stack)
-from .fused_step_odd import (MR_SIZES, col_pass_mr, pair_tile_plan,
+from .fused_step_odd import (MR_SIZES, RegMrPlan, col_pass_mr, pair_plan,
                              record_launch, row_pass_mr, supported_size_mr)
 
 BWD_MODES = ("mid", "last")
@@ -137,11 +146,13 @@ def _row_pass_bwd(kernel: str, mode: str, state: torch.Tensor, t,
     else:
         _check_state(state, lambda n: supported_size_mr(n, state.shape[0]),
                      MR_SIZES)
-        lib, fn, full = (build().libs["fused_step_adjoint_odd"],
-                         "fs_row_pass_bwd_mr", True)
-        plan = pair_tile_plan(ny, nx)
-        plan_args = (plan.logc, plan.threads, int(plan.shared_table),
-                     ctypes.addressof(info))
+        lib, full = build().libs["fused_step_adjoint_odd"], True
+        plan = pair_plan(ny, nx)
+        if isinstance(plan, RegMrPlan):
+            fn, table = "fs_row_pass_bwd_mr_reg", ()
+        else:
+            fn, table = "fs_row_pass_bwd_mr", (int(plan.shared_table),)
+        plan_args = (plan.logc, plan.threads, *table, ctypes.addressof(info))
     phase = False
     if mode == "mid":
         phase = not t.is_complex()
@@ -166,6 +177,8 @@ def _row_pass_bwd(kernel: str, mode: str, state: torch.Tensor, t,
         record_launch("k8", plan, info)
     _raise_on(err, f"{fn} ({kernel.upper()})")
     launches[kernel] += 1
+    if kernel == "k8":
+        launches["k8_regs"] += isinstance(plan, RegMrPlan)
     return out, vbar
 
 
@@ -182,8 +195,8 @@ def row_pass_bwd(mode: str, state: torch.Tensor, t, sigma: float, out=None,
 
 def row_pass_mr_bwd(mode: str, state: torch.Tensor, t, sigma: float,
                     out=None, vbar=None):
-    """K8: ``row_pass_bwd`` with the mixed-radix engine, on the axes K4
-    takes."""
+    """K8: ``row_pass_bwd`` on the axes K4 takes, on the engine of
+    ``fused_step_odd.pair_plan`` (registers or tiles)."""
     return _row_pass_bwd("k8", mode, state, t, sigma, out, vbar)
 
 

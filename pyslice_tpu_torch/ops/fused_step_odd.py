@@ -28,7 +28,8 @@ radices split into two odd groups of at most 33 values, each thread keeps
 its values of a row (K4) or a column (K5) in registers from its load to its
 store, with one exchange through shared memory a transform (A's and B's
 design on an odd axis). ``row_plan`` and ``col_plan`` pick the engine from
-the shape alone.
+the shape alone, and ``pair_plan`` does for the adjoint's K8
+(``ops.fused_step_adjoint``), which runs on the same engine.
 
 Each wrapper takes its plain ``torch.fft`` version (kernel A's and B's) for
 a tensor on the CPU, and for a CUDA tensor launches its kernel or raises.
@@ -258,17 +259,19 @@ def pair_tile_plan(n: int, nx: int) -> TilePlan:
                     shared_table=shared)
 
 
-# The register engine of K4 and K5 (csrc/fft_regs_mr.cuh, the kernels
+# The register engine of K4, K5 and K8 (csrc/fft_regs_mr.cuh, the kernels
 # row_pass_mr_reg_kernel and col_pass_mr_reg_kernel of
-# csrc/fused_step_odd.cu): an axis n = N1 x N2, N1 its first stage radix
-# and N2 the product of the others, both odd and at most REG_MR_GROUP; a
-# transform takes max(N1, N2) threads, each holding a group's values in
-# registers, and one exchange through shared memory, REG_MR_LOGC lanes
-# (rows or columns) a block, one block an SM at 1023. REG_MR_AXES: the
-# axes the kernels are built for (the cases of fs_row_pass_mr_reg and
-# fs_col_pass_mr_reg) and their groups (N1, N2), each timed faster than
-# the tiles in turns with them (scripts/time_col_pass_mr.py, PERF.md);
-# every other axis keeps the tiles.
+# csrc/fused_step_odd.cu, row_pass_bwd_mr_reg_kernel of
+# csrc/fused_step_adjoint_odd.cu): an axis n = N1 x N2, N1 its first stage
+# radix and N2 the product of the others, both odd and at most
+# REG_MR_GROUP; a transform takes max(N1, N2) threads, each holding a
+# group's values in registers, and one exchange through shared memory,
+# REG_MR_LOGC lanes (rows or columns) a block, one block an SM at 1023.
+# REG_MR_AXES: the axes the kernels are built for (the cases of
+# fs_row_pass_mr_reg, fs_col_pass_mr_reg and fs_row_pass_bwd_mr_reg) and
+# their groups (N1, N2), each timed faster than the tiles in turns with
+# them (scripts/time_col_pass_mr.py, PERF.md); every other axis keeps the
+# tiles.
 REG_MR_GROUP = 33
 REG_MR_LOGC = 3
 REG_MR_AXES = {1023: (31, 33), 513: (19, 27)}
@@ -277,10 +280,13 @@ REG_MR_AXES = {1023: (31, 33), 513: (19, 27)}
 @dataclasses.dataclass(frozen=True)
 class RegMrPlan:
     groups: tuple       # (N1, N2)
-    logc: int           # 2^logc lanes (rows or columns) a block
+    logc: int           # 2^logc lanes (rows or columns; K8: row r's pair
+                        # members at 2r, 2r + 1) a block
     threads: int        # a block: max(N1, N2) threads a lane
     smem_bytes: int     # the exchange buffer of the lanes and the table
-    tiles: int          # (probe, tile) pairs the persistent grid walks
+                        # (K8: pair_reg_smem)
+    tiles: int          # (probe, tile) pairs the persistent grid walks;
+                        # K8: row tiles, each walked through every pair
 
     @property
     def lanes(self) -> int:
@@ -317,6 +323,34 @@ def row_plan(n: int, n_probes: int, rows: int):
     (``col_plan``). At 1023: groups (31, 33), 8 rows of 33 threads (264),
     73,656 bytes."""
     return col_plan(n, n_probes, rows)
+
+
+def pair_reg_smem(n: int) -> int:
+    """The shared memory of K8's register kernel
+    (csrc/fused_step_adjoint_odd.cu): the exchange buffer and the next
+    pair's rows, each 2^REG_MR_LOGC lanes of n; for each of the
+    2^(REG_MR_LOGC-1) pair rows (a lane pair) a hand-off row and a row of
+    t / n; the n-entry table of stage twiddles; and the pair rows' n
+    float32 vbar sums each."""
+    rows = n << (REG_MR_LOGC - 1)
+    return 8 * (2 * (n << REG_MR_LOGC) + 2 * rows + n) + 4 * rows
+
+
+def pair_plan(n: int, nx: int):
+    """K8's plan on pair rows of n (ny), nx rows a plane: the register
+    engine's (``RegMrPlan``) on the axes of REG_MR_AXES, the tiles'
+    (``pair_tile_plan``) on every other; it reads only the shape, as
+    ``row_plan`` does for K4. On the registers a block holds 2^REG_MR_LOGC
+    lanes, the two members of 2^(REG_MR_LOGC-1) rows, and walks its row
+    tiles each through every pair in order. At 1023: groups (31, 33), 8
+    lanes of 33 threads (264), 220,968 bytes, 256 row tiles at nx = 1023."""
+    if n not in REG_MR_AXES:
+        return pair_tile_plan(n, nx)
+    n1, n2 = REG_MR_AXES[n]
+    return RegMrPlan(groups=(n1, n2), logc=REG_MR_LOGC,
+                     threads=max(n1, n2) << REG_MR_LOGC,
+                     smem_bytes=pair_reg_smem(n),
+                     tiles=-(-nx // (1 << (REG_MR_LOGC - 1))))
 
 
 def record_launch(kernel: str, plan, info) -> None:

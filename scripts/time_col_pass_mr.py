@@ -10,7 +10,7 @@ axes and ``row_pass_mr_bwd``).
     python3 scripts/time_col_pass_mr.py [--root DIR]
         [--kernels a b k4 k5 k6 k7 k8]
         [--mode mid] [--phase] [--shapes 16x1023 32x1023] [--plain]
-        [--shift] [--nz 14] [--kspace] [--reps 20] [--rounds 5]
+        [--tiles] [--shift] [--nz 14] [--kspace] [--reps 20] [--rounds 5]
 
 --root is the checkout whose package is imported and built (by default the
 one around this script). Each kernel runs through that checkout's own
@@ -31,7 +31,12 @@ barrier floor (``fused_step_resident.barrier_floor``: the launch's grid
 barriers alone), it is timed in the same rounds as K6.
 --plain times the plain version too, in the same rounds (the order
 reversed every other round), for the routing rule of
-``fused_step_odd.kernel_preferred_mr``. --shift places the wave one
+``fused_step_odd.kernel_preferred_mr``. --tiles times K4, K5 and K8 also
+on their persistent tiles in the same rounds, where their plan
+(``row_plan``, ``col_plan``, ``pair_plan``) gives the shape the register
+engine: the plan function is replaced by the tiles' for those calls (a
+checkout without the plan function has the tiles alone). --shift places
+the wave one
 complex64 element (8 bytes) past a 16-byte boundary (the 8-byte copy path
 of B and K5 on an even N). Each timing is --rounds rounds of --reps
 launches (CUDA events), and the median round is reported. Prints a line
@@ -118,6 +123,31 @@ def case(kernel, mode, phase_t, P, n, nz, shift, dev, g, kspace=False):
             [(got[0], want[0], False), (got[1], want[1], True)])
 
 
+def on_tiles(kernel, fn):
+    """fn with K4's, K5's or K8's plan function replaced by its tiles'
+    (``tile_plan``, ``pair_tile_plan``) for the call; None where the
+    checkout's wrapper has no such plan function."""
+    from pyslice_tpu_torch.ops import fused_step_odd as fo
+    if kernel == "k8":
+        from pyslice_tpu_torch.ops import fused_step_adjoint as owner
+        name, tiles = "pair_plan", fo.pair_tile_plan
+    else:
+        owner = fo
+        name, tiles = {"k4": "row_plan", "k5": "col_plan"}[kernel], \
+            fo.tile_plan
+    if not hasattr(owner, name):
+        return None
+    plan = getattr(owner, name)
+
+    def run():
+        setattr(owner, name, tiles)
+        try:
+            return fn()
+        finally:
+            setattr(owner, name, plan)
+    return run
+
+
 def timed(fns, reps, rounds):
     """Median ms a call of each function, over rounds of reps calls, the
     functions in turns (order reversed every other round)."""
@@ -151,6 +181,7 @@ def main():
     ap.add_argument("--shapes", nargs="+", default=["16x1023", "32x1023"])
     ap.add_argument("--phase", action="store_true")
     ap.add_argument("--plain", action="store_true")
+    ap.add_argument("--tiles", action="store_true")
     ap.add_argument("--shift", action="store_true")
     ap.add_argument("--nz", type=int, default=14)
     ap.add_argument("--kspace", action="store_true")
@@ -195,7 +226,13 @@ def main():
                     return 1
             del checks
             n0 = fs.launches[kernel]
-            fns = [run, plain] if args.plain else [run]
+            fns = [run]
+            tiles = (on_tiles(kernel, run)
+                     if args.tiles and kernel in ("k4", "k5", "k8") else None)
+            if tiles is not None:
+                fns.append(tiles)
+            if args.plain:
+                fns.append(plain)
             floor = None
             if kernel == "k6":
                 from pyslice_tpu_torch.ops import fused_step_resident as fr
@@ -205,20 +242,21 @@ def main():
                 if floor is not None:
                     fns.append(floor)
             else:
-                plan = None
+                # the checks' launch: the plan's own engine (--tiles rounds
+                # end on either)
+                plan = dict(getattr(fs, "last_launch", getattr(
+                    fo, "last_launch", {})).get(kernel, {}))
             (ms, ts), *rest = timed(fns, args.reps, args.rounds)
-            want = args.rounds * args.reps + 1 + (kernel == "k6")
+            want = ((1 + (tiles is not None)) * (args.rounds * args.reps + 1)
+                    + (kernel == "k6"))
             if fs.launches[kernel] - n0 != want:
                 print(f"{kernel} at {spec}: the kernel was not launched",
                       file=sys.stderr)
                 return 1
-            if plan is None:
-                plan = dict(getattr(fs, "last_launch", getattr(
-                    fo, "last_launch", {})).get(kernel, {}))
             entry = {"ms": ms, "rounds_ms": ts, "max_rel": errs[0][0],
                      "residual": errs[0][1], "plan": plan}
             engine = (f"{plan.get('engine', 'tiles')} engine "
-                      if kernel in ("k4", "k5") else "")
+                      if kernel in ("k4", "k5", "k8") else "")
             form = (f"{engine}{args.mode}{' phase' if args.phase else ''} "
                     if kernel in ("a", "k4", "k7", "k8") else
                     engine if kernel == "k5" else
@@ -231,6 +269,9 @@ def main():
             if floor is not None:
                 entry["barrier_ms"], entry["barrier_rounds_ms"] = rest.pop()
                 line += f", barrier floor {entry['barrier_ms']:.4f} ms"
+            if tiles is not None:
+                entry["tiles_ms"], entry["tiles_rounds_ms"] = rest.pop(0)
+                line += f", tiles {entry['tiles_ms']:.4f} ms"
             if rest:
                 entry["plain_ms"], entry["plain_rounds_ms"] = rest[0]
                 line += f", plain {entry['plain_ms']:.4f} ms"

@@ -627,9 +627,10 @@ def test_row_pass_mr_bwd_matches_plain(dev, n, P, mode, phase):
 
 
 # K8 on nx = 1023 rows: a ragged last row tile at 8 lanes (ny 1023: 1023 =
-# 255 * 4 + 3 rows) and at 4 (1152: 511 * 2 + 1); 2 lanes at 2304, and at
-# 3968 with the twiddle table in device memory (fused_step_odd
-# pair_tile_plan). P = 3: a pair count that is no power of two.
+# 255 * 4 + 3 rows, on the register engine) and, on the tiles, at 4 (1152:
+# 511 * 2 + 1); 2 lanes at 2304, and at 3968 with the twiddle table in
+# device memory (fused_step_odd pair_plan, pair_tile_plan). P = 3: a pair
+# count that is no power of two.
 K8_NY = [1023, 1152, 2304, 3968]
 
 
@@ -640,8 +641,53 @@ K8_NY = [1023, 1152, 2304, 3968]
 def test_row_pass_mr_bwd_1023_rows_matches_plain(dev, ny, P, mode, phase):
     _check_bwd(dev, fa.row_pass_mr_bwd, "k8", P, 1023, ny, mode, phase)
     plan = fo.last_launch["k8"]
-    assert plan["lanes"] == {1023: 8, 1152: 4}.get(ny, 2)
+    if ny in fo.REG_MR_AXES:
+        assert plan["engine"] == "regs" and plan["lanes"] == 8
+        return
+    assert plan["engine"] == "tiles"
+    assert plan["lanes"] == {1152: 4}.get(ny, 2)
     assert plan["table"] == ("device" if ny == 3968 else "shared")
+
+
+@pytest.mark.parametrize("ny", REG_MR_SIZES)
+@pytest.mark.parametrize("P", [1, 3, 64])
+@pytest.mark.parametrize("mode,phase", [("mid", False), ("mid", True),
+                                        ("last", False)])
+def test_row_pass_mr_bwd_regs_match_plain(dev, ny, P, mode, phase):
+    """K8 on its register engine, P pairs of 1023 rows of ny (a ragged
+    last row tile: 1023 = 255 * 4 + 3), against its plain version, in
+    place too; a second launch gives the same bits, the pair stream and
+    vbar. P = 64: the MEP cell's pair count."""
+    n0, r0 = fs.launches["k8"], fs.launches["k8_regs"]
+    _check_bwd(dev, fa.row_pass_mr_bwd, "k8", P, 1023, ny, mode, phase)
+    assert (fs.launches["k8"], fs.launches["k8_regs"]) == (n0 + 2, r0 + 2)
+    run = fo.last_launch["k8"]
+    assert run["engine"] == "regs" and run["groups"] == fo.REG_MR_AXES[ny]
+    plan = fo.pair_plan(ny, 1023)
+    assert (run["lanes"], run["threads"], run["tiles"], run["smem_bytes"]) == (
+        plan.lanes, plan.threads, plan.tiles, plan.smem_bytes)
+    state = _wave(dev, 2 * P, 1023, ny, seed=4)
+    t = None if mode == "last" else _t_form(dev, 1023, ny, phase)
+    first = fa.row_pass_mr_bwd(mode, state, t, SIGMA)
+    second = fa.row_pass_mr_bwd(mode, state, t, SIGMA)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("n", [1023, 513, 1152, 387])
+def test_row_pass_mr_bwd_engine_follows_the_plan(dev, n):
+    """``launches["k8_regs"]`` advances and ``last_launch["k8"]["engine"]``
+    reads "regs" on the axes of REG_MR_AXES only; "k8" counts both
+    engines."""
+    state = _wave(dev, 4, 258, n)
+    regs = n in fo.REG_MR_AXES
+    n0, r0 = fs.launches["k8"], fs.launches["k8_regs"]
+    fa.row_pass_mr_bwd("mid", state, _phase(dev, 258, n), SIGMA)
+    assert fs.launches["k8"] == n0 + 1
+    assert fs.launches["k8_regs"] == r0 + regs
+    assert fo.last_launch["k8"]["engine"] == ("regs" if regs else "tiles")
+    assert isinstance(fo.pair_plan(n, 258), fo.RegMrPlan) == regs
 
 
 @pytest.mark.parametrize("ny", K8_NY)
@@ -680,6 +726,8 @@ def test_adjoint_chains_match_plain(dev, kind, n, P, nz):
     got = chain(a, g, v, ks, ks, **kw)
     assert tuple(fs.launches[k] - before[k] for k in keys) == (1, nz - 1,
                                                                nz - 1)
+    regs = n in fo.REG_MR_AXES          # K8 at 1023: the register engine
+    assert fs.launches["k8_regs"] - before["k8_regs"] == regs * (nz - 1)
     want = fa.fused_adjoint_chain_plain(a, g, v, ks, ks, **kw)
     _bwd_ok(got, want)
 
@@ -710,6 +758,8 @@ def test_multislice_diff_backward_runs_the_kernels(dev, n, keys):
     nz = 6
     assert tuple(fs.launches[k] - before[k] for k in keys) == (
         nz + 1, 2 * (nz - 1), nz - 1)
+    assert fs.launches["k8_regs"] - before["k8_regs"] == (
+        nz - 1 if "k8" in keys else 0)
     config.fused_multislice = "off"
     try:
         want = grads()
@@ -764,6 +814,18 @@ def test_build_error_raises(dev, monkeypatch, tmp_path):
     monkeypatch.setattr(fs, "_build", None)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fs.build()
+
+
+def test_build_log_is_read_back_when_cached(dev, monkeypatch, tmp_path):
+    """The -Xptxas -v output of a build is kept beside its library, so a
+    second process that finds the library built reads the same log."""
+    monkeypatch.setattr(fs, "_BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(fs, "SOURCES", ("time_fft",))
+    monkeypatch.setattr(fs, "_build", None)
+    first = fs.build().log
+    assert "Compiling entry function" in first and "spill" in first
+    monkeypatch.setattr(fs, "_build", None)
+    assert fs.build().log == first
 
 
 # --- the TACAW time FFT (analysis.time_fft, csrc/time_fft.cu) --------------

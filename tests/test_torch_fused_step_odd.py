@@ -410,6 +410,97 @@ def test_pair_tile_plan_every_kernel_size():
         assert plan.shared_table == (n <= 3874)
 
 
+# K8's plan (``pair_plan``): the register engine on the axes of
+# REG_MR_AXES, (groups, threads, bytes: the exchange buffer and the next
+# item's, four hand-off rows, four rows of t, the table and four vbar
+# rows); the tiles elsewhere
+PAIR_REG_PLANS = {1023: ((31, 33), 264, 220968), 513: ((19, 27), 216, 110808)}
+
+
+@pytest.mark.parametrize("n", PLAN_SIZES + [513])
+@pytest.mark.parametrize("nx", ["n", 1023, 387])
+def test_pair_plan(n, nx):
+    """K8's engine and plan on pair rows of n for n, 1023 or 387 rows (a
+    ragged last row tile: 1023 = 255 * 4 + 3, 387 = 96 * 4 + 3): at 1023
+    and 513 the register engine, 8 lanes (4 rows, a and lambda of each) of
+    max(N1, N2) threads, its walk taking every (pair, row) once and each
+    row tile through its pairs in order; every other axis
+    ``pair_tile_plan``'s tiles."""
+    nx = n if nx == "n" else nx
+    assert set(todd.REG_MR_AXES) == set(PAIR_REG_PLANS)
+    plan = todd.pair_plan(n, nx)
+    if n not in PAIR_REG_PLANS:
+        assert plan == todd.pair_tile_plan(n, nx)
+        _check_pair_plan(plan, n, nx)
+        return
+    assert isinstance(plan, todd.RegMrPlan)
+    assert (plan.groups, plan.threads, plan.smem_bytes) == PAIR_REG_PLANS[n]
+    assert plan.groups == todd.REG_MR_AXES[n]
+    assert plan.lanes == 8 and plan.threads == max(plan.groups) * 8
+    assert plan.smem_bytes == todd.pair_reg_smem(n) == (
+        8 * (2 * 8 * n + 2 * 4 * n + n) + 4 * 4 * n)
+    assert plan.smem_bytes <= todd.SMEM_MAX
+    rows = plan.lanes // 2
+    assert plan.tiles == -(-nx // rows)
+    for grid in sorted({1, min(7, plan.tiles), plan.tiles}):
+        seen = np.zeros((3, nx), int)
+        for items in _walk(plan.tiles, 3, grid):
+            for j, v in enumerate(items):
+                assert v % 3 == j % 3                    # pairs in order
+                x0 = (v // 3) * rows
+                seen[v % 3, x0:min(x0 + rows, nx)] += 1
+        assert (seen == 1).all()
+
+
+def test_pair_plan_every_kernel_size():
+    """Every axis up to 4096 that dispatch gives K8: the register engine
+    on REG_MR_AXES alone, whose blocks fit an SM (threads, shared memory);
+    ``pair_tile_plan`` on every other axis, as before."""
+    sizes = [n for n in range(2, 4097)
+             if todd.supported_size_mr(n, 16) and todd.kernel_preferred_mr(n)]
+    regs = []
+    for n in sizes:
+        plan = todd.pair_plan(n, 387)
+        if not isinstance(plan, todd.RegMrPlan):
+            assert plan == todd.pair_tile_plan(n, 387)
+            continue
+        regs.append(n)
+        assert plan.threads <= 1024 and plan.smem_bytes <= todd.SMEM_MAX
+        assert plan.smem_bytes + tfs.SMEM_BLOCK_RESERVED <= tfs.SMEM_SM
+    assert regs == sorted(todd.REG_MR_AXES)
+
+
+@pytest.mark.parametrize("n", sorted(PAIR_REG_PLANS))
+def test_reg_mr_axes_match_the_pair_kernel_instantiations(n):
+    """fs_row_pass_bwd_mr_reg (csrc/fused_step_adjoint_odd.cu) launches
+    K8's register kernel on exactly the axes of REG_MR_AXES, each with its
+    stage radices, N1 | N2 as REG_MR_AXES gives them."""
+    f = todd.stage_radices(n)
+    src = (Path(todd.__file__).parent / "csrc" / "fused_step_adjoint_odd.cu"
+           ).read_text()
+    body = src[src.index("int fs_row_pass_bwd_mr_reg("):]
+    found = dict(re.findall(
+        r"case (\d+):\s*return launch_pair_reg<([\d, ]+)>", body))
+    assert sorted(int(m) for m in found) == sorted(todd.REG_MR_AXES)
+    assert [int(r) for r in found[str(n)].split(",")] == f
+
+
+@pytest.mark.parametrize("n", [1023, 513, 1152])
+@pytest.mark.parametrize("mode", ["mid", "last"])
+def test_k8_on_a_cpu_tensor_is_the_plain_version(n, mode):
+    """On a CPU pair stream K8 takes its plain version whatever the plan's
+    engine, and launches nothing."""
+    from pyslice_tpu_torch.ops import fused_step_adjoint as tfa
+    g = torch.Generator().manual_seed(n)
+    state = torch.randn((4, 9, n), dtype=torch.complex64, generator=g)
+    t = None if mode == "last" else torch.randn((9, n), generator=g)
+    before = dict(tfs.launches)
+    got = tfa.row_pass_mr_bwd(mode, state, t, 0.5)
+    assert tfs.launches == before
+    want = tfa._plain_row_pass_bwd(mode, state, t, 0.5)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("n_units,per,grid", [(256, 16, 132), (7, 3, 3),
                                               (2048, 1, 132), (5, 1, 5)])
 def test_persistent_walk_covers_every_item_once(n_units, per, grid):
