@@ -80,6 +80,13 @@ def frame_exit_waves(positions, probes: torch.Tensor,
     return exit_waves_from_potential(v, probes, spec)
 
 
+# Slice loops run, by the family that ran them (``physics.propagate.
+# fused_family``; "plain" the torch.fft loop): one a frame (a probe chunk's
+# frame where ``batch_size`` splits it), counted at the dispatch below.
+# Callers read differences, as of ``ops.fused_step.launches``.
+families = {"resident": 0, "aligned": 0, "odd_resident": 0, "odd": 0,
+            "plain": 0}
+
 # The families whose kernels fuse the k-space conversion (as in the JAX
 # package's exit_waves_from_potential); the odd chain has none.
 KSPACE_ENTRIES = {
@@ -98,12 +105,14 @@ def exit_waves_from_potential(v: torch.Tensor, probes: torch.Tensor,
     depth recording takes its family's kernels with the k-space conversion
     fused in (``KSPACE_ENTRIES``); otherwise ``multislice`` (which runs the
     odd K4/K5 chain where that family fits) then fftshift(fft2(.)) by
-    torch.fft. The k axes come from the plan's device constants, so a frame
-    makes no host-to-device copy here."""
+    torch.fft, in the span ``slice_loop.kspace``. The k axes come from the
+    plan's device constants, so a frame makes no host-to-device copy
+    here."""
     with span("slice_loop"):
         c = plan_tensors(spec.plan, spec.precision, probes.device)
         kxs, kys = c["kxs"], c["kys"]
         family = pick_fused(probes, spec.precision, v.shape[0])
+        families[family or "plain"] += 1
         if spec.record_layers is None and family in KSPACE_ENTRIES:
             k = KSPACE_ENTRIES[family](
                 probes, v, kxs, kys,
@@ -118,7 +127,8 @@ def exit_waves_from_potential(v: torch.Tensor, probes: torch.Tensor,
                          kmax2=spec.kmax2, tantilt=spec.tantilt)
         if spec.record_layers is None:
             psi = psi[None]                       # (1, n_probes, nx, ny)
-        k = torch.fft.fftshift(torch.fft.fft2(psi), dim=(-2, -1))
+        with span("slice_loop.kspace"):
+            k = torch.fft.fftshift(torch.fft.fft2(psi), dim=(-2, -1))
         return k.permute(1, 2, 3, 0)              # (probes, nx, ny, layers)
 
 

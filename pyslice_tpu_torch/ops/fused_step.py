@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from ..core.dtypes import SINGLE, as_real
+from ..utils.profiling import span
 
 # Launches of each kernel since the last reset (the wrappers add one per
 # launch; nothing else touches them): A, B, C here, K4 and K5 in
@@ -556,7 +557,8 @@ def _chain(passes, psi, potential_szy, kxs, kys, sigma, lam, dz, ksq,
     """The slice loop as A/B(/C) passes; ``passes`` is (row, col, kconv),
     the wrappers or the plain versions. Skip-last-propagation: no B after
     the last transmission; in k space the last A runs as ``mid`` (its
-    FFT_y is the conversion's y transform)."""
+    FFT_y is the conversion's y transform), and C runs in the span
+    ``slice_loop.kspace``."""
     row, col, kconv = passes
     n_probes, nx, ny = psi.shape
     nz = potential_szy.shape[0]
@@ -573,7 +575,10 @@ def _chain(passes, psi, potential_szy, kxs, kys, sigma, lam, dz, ksq,
     if nz > 1:
         state = col(state, prop, state)
         state = row("mid" if kspace else "last", state, t[nz - 1], state)
-    return kconv(state) if kspace else state
+    if not kspace:
+        return state
+    with span("slice_loop.kspace"):
+        return kconv(state)
 
 
 _KERNEL_PASSES = (row_pass, col_pass, kconvert)

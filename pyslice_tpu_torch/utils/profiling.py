@@ -23,6 +23,9 @@ The spans, nested as the calls nest (``pyslice.`` + the name):
     run                                MultisliceCalculator.run (the frame loop)
     rasterize                          one frame's potential
     slice_loop                         the slice kernels and the k-space step
+    slice_loop.kspace                  the k-space step where it is a launch
+                                       of its own (kernel C; the odd and
+                                       plain loops' fftshift(fft2))
     stream.block, stream.fold,         the streaming engines' feeds, their
     stream.readout                     folds and read-outs
     analysis.time_fft, analysis.reduce, TACAWData's time FFT and reductions;

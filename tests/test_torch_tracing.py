@@ -25,10 +25,12 @@ PROBES = [(2.0, 2.0), (4.0, 4.0)]
 # span -> the span it sits in (None: outside every program span)
 JOB_NESTING = {"setup": None, "setup.plan": "setup", "setup.probe": "setup",
                "run": None, "rasterize": "run", "slice_loop": "run",
+               "slice_loop.kspace": "slice_loop",
                "analysis.time_fft": None, "analysis.reduce": None,
                "analysis.adf": None}
 STREAM_NESTING = {"setup.plan": None, "stream.block": None,
                   "rasterize": "stream.block", "slice_loop": "stream.block",
+                  "slice_loop.kspace": "slice_loop",
                   "stream.fold": "stream.block", "stream.readout": None}
 COLLECTIVES = {"collective.all_to_all", "collective.all_reduce",
                "collective.all_gather"}
