@@ -8,7 +8,10 @@ Counterpart of ``pyslice_tpu/engine/calculator.py`` (reference
 * ``run()`` (host path) pulls each frame's exit waves to a NumPy array
   (complex128 in double precision, complex64 otherwise) and keeps the
   crash-resume frame cache: one .npy per frame under
-  ``psi_data/torch_<md5-12>/``, keyed by an md5 of the parameters.
+  ``psi_data/torch_<md5-12>/``, keyed by an md5 of the parameters. The key
+  digests every frame's positions, so with the cache off ``output_dir`` is
+  computed on first read only (``STATS["cache_key_digests"]`` counts the
+  digests taken).
 * ``setup(device_output=True)`` keeps the exit waves on the device: the
   WFData holds a tensor that TACAWData / HAADFData reduce in place.
 * ``defocus`` is applied to the base probe; the probe batch is built once
@@ -49,6 +52,8 @@ from .pipeline import SimSpec, frame_exit_waves, simulate_frames_into
 
 logger = logging.getLogger(__name__)
 
+STATS = {"cache_key_digests": 0}
+
 
 def device_memory_limit(device: torch.device) -> Optional[int]:
     """Free bytes on a CUDA ``device`` (``torch.cuda.mem_get_info``), or
@@ -67,6 +72,7 @@ class MultisliceCalculator:
 
     def _generate_cache_key(self) -> str:
         """md5-12 of the simulation parameters, atomic positions included."""
+        STATS["cache_key_digests"] += 1
         t = self.trajectory
         pos_digest = hashlib.md5(
             np.ascontiguousarray(t.positions).tobytes()).hexdigest()
@@ -97,6 +103,14 @@ class MultisliceCalculator:
             params["debye_waller"] = sorted(
                 (str(k), float(v)) for k, v in self.debye_waller.items())
         return hashlib.md5(str(sorted(params.items())).encode()).hexdigest()[:12]
+
+    @property
+    def output_dir(self) -> Path:
+        """The frame cache's directory, ``<cache_root>/torch_<md5-12>``."""
+        if self._output_dir is None:
+            self._output_dir = (Path(self.cache_root)
+                                / f"torch_{self._generate_cache_key()}")
+        return self._output_dir
 
     def setup(self,
               trajectory: Trajectory,
@@ -201,8 +215,8 @@ class MultisliceCalculator:
             elif device_output:
                 self._warn_resident(device_memory_limit(self.device))
 
-            self.output_dir = (Path(cache_root)
-                               / f"torch_{self._generate_cache_key()}")
+            self.cache_root = cache_root
+            self._output_dir = None
             if self.use_cache:
                 self.output_dir.mkdir(parents=True, exist_ok=True)
 
@@ -343,8 +357,9 @@ class MultisliceCalculator:
         computed = cached = 0
         bar = self._progress(progress)
         for i in range(self.n_frames):
-            path = self.output_dir / f"frame_{i}.npy"
-            if self.use_cache and path.exists():
+            path = (self.output_dir / f"frame_{i}.npy" if self.use_cache
+                    else None)
+            if path is not None and path.exists():
                 out[:, i] = np.load(path)
                 cached += 1
             else:

@@ -8,13 +8,15 @@ atom is painted as a k-space sinusoid (a sub-pixel delta),
 multiplied by the Kirkland form factor of its element; one inverse FFT per
 slice, the real part, and the 1/(dx dy)^2 normalization give the potential.
 
-The host plan (``make_plan``) is the JAX package's, unchanged: atoms of all
-frames are binned into (type, slice) buckets, and only occupied buckets,
-each with padded capacity ``a_max``, are computed. At run time each bucket's
-structure factor is one complex matrix product (nx, a_max) @ (a_max, ny)
-(``torch.matmul``, TF32 off — see ``core.dtypes``), summed into the
-(nz, nx, ny) reciprocal stack, then one batched ``torch.fft.ifft2``. The
-JAX package left this to XLA, so it is library code here, not a kernel.
+The host plan (``make_plan``) is the JAX package's, field for field: atoms
+of all frames are binned into (type, slice) buckets (here in one pass over
+chunks of frames, where the JAX package loops over frames), and only
+occupied buckets, each with padded capacity ``a_max``, are computed. At run
+time each bucket's structure factor is one complex matrix product
+(nx, a_max) @ (a_max, ny) (``torch.matmul``, TF32 off — see
+``core.dtypes``), summed into the (nz, nx, ny) reciprocal stack, then one
+batched ``torch.fft.ifft2``. The JAX package left this to XLA, so it is
+library code here, not a kernel.
 
 Slice-binning edge rules (reference potentials.py:302-307): bin s covers
 [coord_s - dz/2, coord_s + dz/2), except bin 0 starts at 0 and the last bin
@@ -66,6 +68,94 @@ def bin_atoms_np(coords: np.ndarray, edges: np.ndarray) -> Tuple[np.ndarray, np.
     idx = np.searchsorted(edges, coords, side="right") - 1
     valid = (idx >= 0) & (idx < len(edges) - 1)
     return idx, valid
+
+
+# make_plan bins the frames in chunks of at most this many atoms (at least
+# one frame), so its host memory stays a few MB however long the run.
+PLAN_CHUNK_ATOMS = 1 << 16
+
+# A chunk whose coordinates span at most this many cell bounds is binned
+# by one comparison per bound; a wider one by a binary search.
+_COMPARE_BOUNDS = 16
+
+
+def _float32_thresholds(edges: np.ndarray) -> np.ndarray:
+    """For each (finite) edge e, the least float64 x with float32(x) >=
+    float32(e). Rounding is monotone, so binning float32(x) against the
+    float32 edges equals binning x against these thresholds."""
+    c = edges.astype(np.float32)
+    below = np.nextafter(c, np.float32(-np.inf))
+    # The midpoint of two adjacent float32 values is exact in float64; it
+    # rounds to c or to its neighbour below (ties to even).
+    mid = (below.astype(np.float64) + c.astype(np.float64)) / 2.0
+    return np.where(mid.astype(np.float32) >= c, mid,
+                    np.nextafter(mid, np.inf))
+
+
+def _cells(z: np.ndarray, bounds: np.ndarray, base: np.ndarray) -> np.ndarray:
+    """``base + searchsorted(bounds, z, side="right")``. A chunk whose
+    coordinates lie within a few bounds (a thin specimen's layer) is
+    counted by comparisons against those bounds alone."""
+    lo, hi = z.min(), z.max()
+    if not np.isnan(lo):                 # a NaN coordinate makes lo NaN
+        a, b = np.searchsorted(bounds, [lo, hi], side="right")
+        if b - a <= _COMPARE_BOUNDS:
+            cells = base + a
+            for bound in bounds[a:b]:
+                cells += z >= bound
+            return cells
+    cells = np.searchsorted(bounds, z, side="right")
+    cells += base
+    return cells
+
+
+def _occupancy(pos: np.ndarray, slice_axis: int, edges: np.ndarray,
+               type_ids: np.ndarray, n_types: int) -> Tuple[np.ndarray, int]:
+    """(occupied (n_types * nz,) bool, largest atom count of one (frame,
+    type, slice) bucket) over all frames, each binned both in float64 and
+    in float32: the run bins in its own precision, and an atom exactly on
+    an edge can round across it in float32.
+
+    Both binnings are ``searchsorted(side="right") - 1`` against sorted
+    bounds, so one search against the merged bounds (the edges and their
+    float32 thresholds) finds each atom's cell, one ``bincount`` counts the
+    cells of every (frame, type), and running sums over the cells give each
+    cast's slices; out-of-slab cells fall in no slice."""
+    nz = len(edges) - 1
+    n_frames, n_atoms = pos.shape[:2]
+    occupied = np.zeros((n_types, nz), dtype=bool)
+    if n_atoms == 0:
+        return occupied.ravel(), 0
+    thresholds = _float32_thresholds(edges)
+    bounds = np.sort(np.concatenate([edges, thresholds]))
+    n_cells = len(bounds) + 1
+    # The least coordinate of each cell (-inf below the first bound) gives
+    # the cell's slice in each cast (-1 and nz lie outside the slab); the
+    # slices climb with the cells, so slice s is the run of cells
+    # [first[s], last[s]) in each cast.
+    least = np.concatenate([[-np.inf], bounds])
+    first, last = [], []
+    for b in (edges, thresholds):
+        slices = np.searchsorted(b, least, side="right") - 1
+        first.append(np.searchsorted(slices, np.arange(nz), side="left"))
+        last.append(np.searchsorted(slices, np.arange(nz), side="right"))
+    first, last = np.concatenate(first), np.concatenate(last)
+    per_chunk = max(1, PLAN_CHUNK_ATOMS // n_atoms)
+    base = ((np.arange(min(per_chunk, n_frames))[:, None] * n_types
+             + type_ids) * n_cells)
+    max_count = 0
+    for f0 in range(0, n_frames, per_chunk):
+        z = np.ascontiguousarray(pos[f0:f0 + per_chunk, :, slice_axis])
+        cells = _cells(z, bounds, base[:len(z)])
+        counts = np.bincount(cells.ravel(),
+                             minlength=len(z) * n_types * n_cells)
+        running = np.zeros((len(z) * n_types, n_cells + 1), dtype=np.int64)
+        np.cumsum(counts.reshape(-1, n_cells), axis=1, out=running[:, 1:])
+        per_slice = running[:, last] - running[:, first]      # (., 2 nz)
+        max_count = max(max_count, int(per_slice.max()))
+        occupied |= (per_slice.reshape(len(z), n_types, 2, nz) > 0).any(
+            axis=(0, 2))
+    return occupied.ravel(), max_count
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -179,22 +269,8 @@ def make_plan(xs, ys, zs, positions_all_frames, atom_types,
             dwf_b = np.array([bz.get(int(z), 0.0) for z in unique_z],
                              dtype=np.float64)
 
-        # Occupancy over all frames, for both float64 and float32 edge
-        # comparisons: the run bins in the run precision, and an atom exactly
-        # on an edge can round across it in float32.
-        n_bins = n_types * nz
-        occupied = np.zeros(n_bins, dtype=bool)
-        max_count = 0
-        for f in range(pos.shape[0]):
-            for cast in (np.float64, np.float32):
-                sl, valid = bin_atoms_np(pos[f, :, slice_axis].astype(cast),
-                                         edges.astype(cast))
-                bins = type_ids[valid] * nz + sl[valid]
-                if bins.size:
-                    counts = np.bincount(bins, minlength=n_bins)
-                    occupied |= counts > 0
-                    max_count = max(max_count, int(counts.max()))
-
+        occupied, max_count = _occupancy(pos, slice_axis, edges, type_ids,
+                                         n_types)
         if max_count == 0:
             # No atoms in the box: one empty bucket keeps shapes valid.
             occupied[0] = True

@@ -169,6 +169,50 @@ def test_frame_cache_resume_and_probe_positions_key(tmp_path):
     assert calc3.output_dir != calc.output_dir
 
 
+def _digests():
+    from pyslice_tpu_torch.engine.calculator import STATS
+    return STATS["cache_key_digests"]
+
+
+@pytest.mark.parametrize("device_output", [False, True])
+def test_cache_key_only_when_read(tmp_path, device_output):
+    """With the cache off, setup and run take no digest of the positions;
+    output_dir, read afterwards, names the directory a cached setup of the
+    same inputs makes, and a second setup gives the new inputs' key."""
+    ttraj, _ = _traj()
+    setup = dict(SETUP, cache_root=str(tmp_path))
+    calc = tt.MultisliceCalculator(device="cpu")
+    n = _digests()
+    calc.setup(ttraj, device_output=device_output, **setup)
+    calc.run(progress=False)
+    assert _digests() == n
+    cached = tt.MultisliceCalculator(device="cpu")
+    cached.setup(ttraj, **dict(setup, use_cache=True))
+    assert cached.output_dir.is_dir() and _digests() == n + 1
+    assert calc.output_dir == cached.output_dir and _digests() == n + 2
+    # A second read reuses the key.
+    assert calc.output_dir == cached.output_dir and _digests() == n + 2
+    moved = tt.Trajectory(atom_types=ttraj.atom_types,
+                          positions=ttraj.positions + 0.01,
+                          velocities=ttraj.velocities,
+                          box_matrix=ttraj.box_matrix,
+                          timestep=ttraj.timestep)
+    calc.setup(moved, device_output=device_output, **setup)
+    assert _digests() == n + 2
+    assert calc.output_dir != cached.output_dir and _digests() == n + 3
+
+
+def test_cache_on_takes_one_digest_per_setup(tmp_path):
+    ttraj, _ = _traj()
+    calc = tt.MultisliceCalculator(device="cpu")
+    n = _digests()
+    for k in (1, 2):
+        calc.setup(ttraj, **dict(SETUP, use_cache=True,
+                                 cache_root=str(tmp_path)))
+        calc.output_dir
+        assert _digests() == n + k
+
+
 def test_unported_options_raise():
     """mesh= is taken: setup checks the frame and probe counts against the
     mesh's extents (the JAX package's messages) before anything runs."""

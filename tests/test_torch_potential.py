@@ -41,6 +41,7 @@ def _assert_plans_equal(pt, pj):
         else:
             np.testing.assert_array_equal(np.asarray(ft[k]),
                                           np.asarray(fj[k]), err_msg=k)
+            assert np.asarray(ft[k]).dtype == np.asarray(fj[k]).dtype, k
 
 
 def test_kirkland_table_and_form_factor_equal_jax():
@@ -70,6 +71,77 @@ def test_make_plan_fields_equal_jax(case):
         traj.atom_types = np.where(traj.atom_types == 5, "B", "N")
         pt, pj = _plans(traj)
     _assert_plans_equal(pt, pj)
+
+
+def _near_edges(edges):
+    """Coordinates on each float64 edge, its float64 neighbours, its float32
+    value, one float32 ulp either side of that, and the float64 midpoints
+    between those float32 values (which round to even)."""
+    up, down = np.float32(np.inf), np.float32(-np.inf)
+    out = []
+    for e in edges:
+        c = np.float32(e)
+        lo, hi = np.nextafter(c, down), np.nextafter(c, up)
+        out += [e, np.nextafter(e, -np.inf), np.nextafter(e, np.inf),
+                c, lo, hi, (np.float64(lo) + np.float64(c)) / 2,
+                (np.float64(c) + np.float64(hi)) / 2]
+    return np.array(out, dtype=np.float64)
+
+
+def _one_pass_inputs(case):
+    """(xs, ys, zs, positions, atom types, make_plan keywords) of one case;
+    the binned coordinates are set per case, the others drawn in the box."""
+    g = grid_from_trajectory(hbn_thermal(n_frames=1), sampling=0.25)
+    axis = {"axis0": 0, "axis1": 1}.get(case, 2)
+    coords = [g.xs, g.ys, g.zs][axis]
+    edges = tpot.slice_edges(coords, coords[1] - coords[0])
+    top = edges[-1]
+    values = {
+        "outside": np.array([-1.0, -1e-3, -0.0, 0.0, top, top + 1e-9,
+                             top + 1.0, edges[2] + 0.1, edges[-2]]),
+        "empty": np.array([-2.0, -1e-12, top, top + 3.0]),
+        "nonfinite": np.array([np.nan, np.inf, -np.inf, edges[1],
+                               edges[3] + 0.2]),
+    }.get(case, None)
+    if values is None:
+        values = _near_edges(edges)
+    n_frames = {"2d": 1, "chunks": 7}.get(case, 3)
+    rng = np.random.default_rng(len(case))
+    box = np.array([g.lx, g.ly, g.lz])
+    pos = rng.random((n_frames, len(values), 3)) * box
+    pos[:, :, axis] = [rng.permutation(values) for _ in range(n_frames)]
+    types = rng.choice([5, 7, 14], size=len(values))
+    if case == "2d":
+        pos = pos[0]
+    return g.xs, g.ys, g.zs, pos, types, {"slice_axis": axis}
+
+
+@pytest.mark.parametrize("search", ["compare", "binary"])
+@pytest.mark.parametrize("case", ["edges", "outside", "2d", "axis0", "axis1",
+                                  "empty", "chunks", "nonfinite"])
+def test_one_pass_plan_equals_jax_loop(case, search, monkeypatch):
+    """make_plan bins all frames in one pass per chunk; the JAX package's
+    plan bins frame by frame, both casts, so every field must agree."""
+    monkeypatch.setattr(tpot, "_COMPARE_BOUNDS",
+                        10 ** 6 if search == "compare" else 0)
+    if case == "chunks":
+        monkeypatch.setattr(tpot, "PLAN_CHUNK_ATOMS", 300)
+    *args, kw = _one_pass_inputs(case)
+    pt, pj = tpot.make_plan(*args, **kw), jpot.make_plan(*args, **kw)
+    _assert_plans_equal(pt, pj)
+    if case in ("edges", "axis0", "axis1"):
+        # Each atom beside one below the slab: the plan is that atom's
+        # buckets in both casts, and the frame's range spans every bound
+        # up to it.
+        xs, ys, zs, pos, types = args
+        below = pos[0, 0].copy()
+        below[kw["slice_axis"]] = -1.0
+        for atom in pos[0]:
+            one = (xs, ys, zs, np.stack([below, atom]), types[:2])
+            _assert_plans_equal(tpot.make_plan(*one, **kw),
+                                jpot.make_plan(*one, **kw))
+    if case == "empty":
+        assert pt.a_max == 8 and pt.bucket_types[0] == 0
 
 
 def test_oblique_make_plan_equal_jax():
