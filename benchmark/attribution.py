@@ -1,8 +1,8 @@
 """Readings from a ``torch.profiler`` trace (its Chrome-trace export).
 
-* ``window`` / ``device_intervals`` / ``busy_seconds`` / ``idle_gaps``:
-  the device's busy time inside the benchmark's window span
-  (``WINDOW_SPAN``), and the gaps with the host activity at each.
+* ``window`` / ``busy_seconds`` / ``idle_gaps``: the device's busy time
+  inside the benchmark's window span (``WINDOW_SPAN``), and its idle gaps
+  (``program_spans.gap_labels`` names them).
 * ``attribute``: device time per layer. Each device operation is
   followed to the call that launched it (its ``correlation`` id), and
   the launch to the innermost Python frame (``python_function`` events
@@ -76,22 +76,6 @@ def idle_gaps(dev_events, lo: float, hi: float) -> list:
     if hi > t:
         gaps.append((t, hi))
     return gaps
-
-
-def host_label(events, t: float) -> str:
-    """What the host was doing at ``t``: the innermost benchmark span and
-    the innermost CPU operator around it."""
-    def innermost(cat):
-        best = None
-        for e in events:
-            if e.get("cat") == cat:
-                a, b = _span(e)
-                if a <= t < b and (best is None or a >= best[0]):
-                    best = (a, e["name"])
-        return best[1] if best else None
-    parts = [p for p in (innermost("user_annotation"), innermost("cpu_op"))
-             if p]
-    return " / ".join(parts) if parts else "host (no operator)"
 
 
 def top_device_ops(dev_events, n: int = 10) -> list:

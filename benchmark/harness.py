@@ -216,10 +216,12 @@ def _profile(run: RankRun, driver, steps: int, with_stack: bool) -> tuple:
 
 
 def _traced(run: RankRun, driver) -> dict:
-    """The traced run's two passes: the device's busy time, operations and
-    idle gaps with the Python tracer off; the layer attribution with it
-    on (it slows the host, which would inflate the idle time)."""
+    """The traced run's two passes: the device's busy time, operations,
+    idle gaps and the program's spans (``program_spans.by_span``) with the
+    Python tracer off; the layer attribution with it on (it slows the
+    host, which would inflate the idle time)."""
     import attribution as at
+    import program_spans
     tr = run.traffic
     counters0 = driver.counters()
     spans0 = {k: len(v) for k, v in run.spans.seconds.items()}
@@ -227,12 +229,16 @@ def _traced(run: RankRun, driver) -> dict:
     lo, hi = at.window(events)
     dev = at.device_events(events)
     gaps = sorted(at.idle_gaps(dev, lo, hi), key=lambda g: g[0] - g[1])[:10]
+    t0 = time.perf_counter()
+    program = program_spans.by_span(events, lo, hi)
+    labels = program_spans.gap_labels(events, gaps, lo, hi)
     out = {
         "frames": frames, "steps": tr["trace_steps"],
         "window_s": 1e-6 * (hi - lo), "busy_s": at.busy_seconds(dev, lo, hi),
         "device_ops": len(dev), "top_ops": at.top_device_ops(dev),
-        "idle_gaps": [[at.host_label(events, a), 1e-6 * (b - a)]
-                      for a, b in gaps],
+        "idle_gaps": [[label, 1e-6 * (b - a)]
+                      for label, (a, b) in zip(labels, gaps)],
+        "program": program, "program_read_s": time.perf_counter() - t0,
         "spans": {k: v[spans0.get(k, 0):]
                   for k, v in run.spans.seconds.items()},
         "counters": {k: v - counters0.get(k, 0.0)
@@ -371,9 +377,14 @@ def run_ranks(cell: Cell, opts: dict) -> list:
 # --- the result -------------------------------------------------------
 
 
+SPAN_SUMS = ("count", "host_s", "device_s", "device_ops", "ops_inclusive")
+
+
 @dataclasses.dataclass
 class Readings:
-    """What the per-layer readers see, summed or averaged over ranks."""
+    """What the per-layer readers see, summed or averaged over ranks.
+    ``program``: ``program_spans.by_span`` of the stack-off pass, each
+    span's ``SPAN_SUMS`` summed and its ``idle_s`` averaged."""
     frames: int
     steps: int
     window_s: float
@@ -385,6 +396,7 @@ class Readings:
     spans: dict
     counters: dict
     slice_loop_least_s: float
+    program: dict = dataclasses.field(default_factory=dict)
 
 
 def readings(ranks: list, least_s: float) -> Readings:
@@ -397,6 +409,14 @@ def readings(ranks: list, least_s: float) -> Readings:
     for t in tr:
         for k, v in t["counters"].items():
             counters[k] = max(counters.get(k, 0.0), v)
+    program = {}
+    for t in tr:
+        for name, v in t["program"].items():
+            p = program.setdefault(name,
+                                   dict.fromkeys(SPAN_SUMS + ("idle_s",), 0))
+            for k in SPAN_SUMS:
+                p[k] += v[k]
+            p["idle_s"] += v["idle_s"] / len(tr)
     return Readings(
         frames=tr[0]["frames"], steps=tr[0]["steps"],
         window_s=float(np.mean([t["window_s"] for t in tr])),
@@ -404,7 +424,7 @@ def readings(ranks: list, least_s: float) -> Readings:
         device_ops=sum(t["device_ops"] for t in tr),
         layer_s=layer_s, frames2=tr[0]["frames2"], steps2=tr[0]["steps2"],
         spans=tr[0]["spans"], counters=counters,
-        slice_loop_least_s=least_s)
+        slice_loop_least_s=least_s, program=program)
 
 
 def base_name(metric: str) -> str:
@@ -478,6 +498,12 @@ def result(cell: Cell, opts: dict, ranks: list, t_start: float,
             f"rank {r['rank']} {r['trace']['unattributed_s']:.6f} s "
             f"{json.dumps(r['trace']['unattributed_ops'])}" for r in ranks))
         lines.append("layer device seconds: " + json.dumps(rd.layer_s))
+        lines.append("program spans: " + json.dumps(
+            {k: {"device_s": v["device_s"], "idle_s": v["idle_s"]}
+             for k, v in sorted(rd.program.items())}))
+        lines.append("program spans read in: " + ", ".join(
+            f"rank {r['rank']} {r['trace']['program_read_s']:.3f} s"
+            for r in ranks))
         breakdown = {"device_ops": tr0["top_ops"],
                      "idle_gaps": tr0["idle_gaps"]}
         peak = max(r.get("peak_bytes", 0) for r in ranks)

@@ -4,9 +4,10 @@
 The program (``pyslice_tpu_torch.utils.profiling.span``) opens a
 ``record_function`` range named ``pyslice.<span>`` at each layer boundary
 while a profiler records: ``setup``, ``setup.plan``, ``setup.probe``,
-``run``, ``rasterize``, ``slice_loop``, ``stream.block``, ``stream.fold``,
-``stream.readout``, ``analysis.time_fft``, ``analysis.reduce``,
-``analysis.adf``, ``collective.*``.
+``run``, ``rasterize``, ``slice_loop``, ``slice_loop.kspace``,
+``stream.block``, ``stream.fold``, ``stream.readout``,
+``analysis.time_fft``, ``analysis.reduce``, ``analysis.adf``,
+``collective.*``, ``msp.*``, ``adjoint``.
 
 * ``by_span(events, lo, hi)``: per span name, inside the window [lo, hi]
   (microseconds), its instances (``count``) and inclusive host seconds
@@ -18,8 +19,12 @@ while a profiler records: ``setup``, ``setup.plan``, ``setup.probe``,
   program span go under ``""``. On a CPU-only trace the outermost CPU
   operators stand in for the device operations, as in
   ``attribution.attribute``.
+* ``gap_labels(events, gaps, lo, hi)``: each idle gap named by what the
+  host did during it, on the split ``by_span`` makes.
 * ``METRICS``: the per-layer readings of a ``SpanReadings``, each None
-  where its spans hold nothing.
+  where its spans hold nothing. The harness reads the window's spans
+  through ``by_span`` in every traced run, and the readers of
+  ``metrics/*.py`` that ``BENCHMARK.json`` names take theirs from here.
 
     python3 benchmark/program_spans.py --workload <cell> --seed <n> \\
         [--rounds 2] [--out FILE]
@@ -48,6 +53,7 @@ from pathlib import Path
 import attribution as at
 
 PREFIX = "pyslice."
+BENCH_PREFIX = "bench."
 OUTSIDE = ""
 
 
@@ -113,6 +119,17 @@ def _segments(spans, lo: float, hi: float) -> list:
     return [(p, q, n) for (p, q), n in zip(zip(points, points[1:]), names)]
 
 
+def _parts(segs, starts, g0: float, g1: float):
+    """(start, end, span name) of the pieces of [g0, g1] that the segments
+    ``segs`` (``_segments``; ``starts`` their starts) cover."""
+    j = max(0, bisect.bisect_right(starts, g0) - 1)
+    while j < len(segs) and segs[j][0] < g1:
+        a, b = max(segs[j][0], g0), min(segs[j][1], g1)
+        if b > a:
+            yield a, b, segs[j][2]
+        j += 1
+
+
 def _main_thread(events, spans: dict):
     """The thread of the benchmark's window span, else the one with the
     most program spans."""
@@ -158,18 +175,56 @@ def by_span(events, lo: float, hi: float) -> dict:
             ops[own][at.short_name(op)] += 1e-6 * dur
             for name in set(names):
                 out[name]["ops_inclusive"] += 1
-    main = _main_thread(events, spans)
-    segs = _segments(spans.get(main, []), lo, hi)
+    segs = _segments(spans.get(_main_thread(events, spans), []), lo, hi)
     starts = [s[0] for s in segs]
     for g0, g1 in at.idle_gaps(at.device_events(events), lo, hi):
-        j = max(0, bisect.bisect_right(starts, g0) - 1)
-        while j < len(segs) and segs[j][0] < g1:
-            a, b = max(segs[j][0], g0), min(segs[j][1], g1)
-            if b > a:
-                out[segs[j][2]]["idle_s"] += 1e-6 * (b - a)
-            j += 1
+        for a, b, name in _parts(segs, starts, g0, g1):
+            out[name]["idle_s"] += 1e-6 * (b - a)
     return {k: dict(v, top_ops=[list(o) for o in ops[k].most_common(5)])
             for k, v in out.items()}
+
+
+def _innermost(ranges, t: float):
+    """The name of the range (start, end, name) around ``t`` that started
+    last, or None."""
+    best = None
+    for a, b, name in ranges:
+        if a <= t < b and (best is None or a >= best[0]):
+            best = (a, name)
+    return best[1] if best else None
+
+
+def gap_labels(events, gaps, lo: float, hi: float) -> list:
+    """A label for each idle gap (start, end) in microseconds: the
+    innermost program span (``pyslice.<name>``) that held the largest part
+    of the gap on the main thread, by ``by_span``'s split; where that part
+    lies outside every program span, the innermost benchmark span
+    (``bench.*``) at its middle; then `` / `` and the innermost CPU
+    operator at the middle of the longest piece of that part."""
+    spans = program_spans(events)
+    segs = _segments(spans.get(_main_thread(events, spans), []), lo, hi)
+    starts = [s[0] for s in segs]
+    bench, ops = [], []
+    for e in events:
+        if e.get("cat") == "cpu_op":
+            ops.append(at._span(e) + (e["name"],))
+        elif e.get("cat") == "user_annotation" \
+                and e.get("name", "").startswith(BENCH_PREFIX):
+            bench.append(at._span(e) + (e["name"],))
+    out = []
+    for g0, g1 in gaps:
+        held = collections.Counter()
+        piece = {}
+        for a, b, name in _parts(segs, starts, g0, g1):
+            held[name] += b - a
+            if b - a > piece.get(name, (0.0,))[0]:
+                piece[name] = (b - a, (a + b) / 2)
+        name = max(held, key=held.get)
+        t = piece[name][1]
+        head = PREFIX + name if name != OUTSIDE else _innermost(bench, t)
+        parts = [p for p in (head, _innermost(ops, t)) if p]
+        out.append(" / ".join(parts) if parts else "host (no operator)")
+    return out
 
 
 def crosstab(events, layers) -> list:
@@ -221,8 +276,29 @@ class SpanReadings:
     program: dict
 
 
+def of_readings(r) -> SpanReadings:
+    """The ``SpanReadings`` of the harness's ``Readings``."""
+    return SpanReadings(r.frames, r.steps, r.window_s, r.slice_loop_least_s,
+                        r.program)
+
+
 def _sum(r: SpanReadings, names, key: str) -> float:
     return sum(r.program.get(n, {}).get(key, 0) for n in names)
+
+
+def _family(r: SpanReadings, *roots) -> list:
+    """The spans of ``r`` that are one of ``roots`` or lie under one
+    (``<root>.*``)."""
+    return [n for n in r.program
+            if any(n == x or n.startswith(x + ".") for x in roots)]
+
+
+def _idle_pct(r: SpanReadings, names):
+    """The window's device idle under ``names``, as a share of the window;
+    None where none of them is in the window."""
+    if not names or r.window_s <= 0:
+        return None
+    return 100.0 * _sum(r, names, "idle_s") / r.window_s
 
 
 def span_rasterize_ms(r):
@@ -233,8 +309,8 @@ def span_rasterize_ms(r):
 
 def span_roofline_pct(r):
     """The slice loop's least time (``roofline.slice_loop_work``) over
-    the device time under ``slice_loop``."""
-    s = _sum(r, ["slice_loop"], "device_s")
+    the device time under ``slice_loop`` and ``slice_loop.*``."""
+    s = _sum(r, _family(r, "slice_loop"), "device_s")
     return 100.0 * r.slice_loop_least_s * r.frames / s if s > 0 else None
 
 
@@ -262,11 +338,41 @@ def plan_ms(r):
 def setup_idle_pct(r):
     """The window's device idle under ``setup`` and ``setup.*``, as a
     share of the window."""
-    if "setup" not in r.program or r.window_s <= 0:
-        return None
-    s = _sum(r, [n for n in r.program
-                 if n == "setup" or n.startswith("setup.")], "idle_s")
-    return 100.0 * s / r.window_s
+    return _idle_pct(r, _family(r, "setup"))
+
+
+def loop_idle_pct(r):
+    """The window's device idle under the frame loop (``run``,
+    ``rasterize``, ``slice_loop`` and theirs), as a share of the window:
+    the host's dispatch trailing the device."""
+    return _idle_pct(r, _family(r, "run", "rasterize", "slice_loop"))
+
+
+def analysis_idle_pct(r):
+    """The window's device idle under ``analysis.*`` and
+    ``collective.*``, as a share of the window."""
+    return _idle_pct(r, _family(r, "analysis", "collective"))
+
+
+def unspanned_idle_pct(r):
+    """The window's device idle outside every program span, as a share of
+    the window: the program's code that opens none (``Trajectory``, the
+    calculator's constructor) and the benchmark's own work."""
+    return _idle_pct(r, [OUTSIDE] if OUTSIDE in r.program else [])
+
+
+def kspace_ms(r):
+    """Device time under ``slice_loop.kspace`` (kernel C, or the odd and
+    plain loops' ``fftshift(fft2)``), a frame."""
+    s = _sum(r, _family(r, "slice_loop.kspace"), "device_s")
+    return 1e3 * s / r.frames if s > 0 else None
+
+
+def msp_backward_ms(r):
+    """Device time under ``adjoint`` (multislice_diff's backward, on
+    autograd's device thread), a step."""
+    s = _sum(r, _family(r, "adjoint"), "device_s")
+    return 1e3 * s / r.steps if s > 0 else None
 
 
 def frame_ops_per_frame(r):
@@ -278,7 +384,8 @@ def frame_ops_per_frame(r):
 
 METRICS = {f.__name__: f for f in (
     span_rasterize_ms, span_roofline_pct, span_fold_ms, span_analysis_ms,
-    plan_ms, setup_idle_pct, frame_ops_per_frame)}
+    plan_ms, setup_idle_pct, loop_idle_pct, analysis_idle_pct,
+    unspanned_idle_pct, kspace_ms, msp_backward_ms, frame_ops_per_frame)}
 
 
 # --- the report -------------------------------------------------------
@@ -304,6 +411,7 @@ def readings(events, frames: int, steps: int, least_s: float) -> dict:
     dev = at.device_events(events)
     busy = at.busy_seconds(dev, lo, hi)
     prog = by_span(events, lo, hi)
+    gaps = sorted(at.idle_gaps(dev, lo, hi), key=lambda g: g[0] - g[1])[:10]
     r = SpanReadings(frames, steps, 1e-6 * (hi - lo), least_s, prog)
     return {"frames": frames, "window_s": r.window_s, "busy_s": busy,
             "device_ops": len(dev),
@@ -312,9 +420,8 @@ def readings(events, frames: int, steps: int, least_s: float) -> dict:
                                       if busy > 0 else None),
             "idle_split_s": sum(v["idle_s"] for v in prog.values()),
             "idle_s": r.window_s - busy, "program": prog,
-            "idle_gaps": [[at.host_label(events, a), 1e-6 * (b - a)]
-                          for a, b in sorted(at.idle_gaps(dev, lo, hi),
-                                             key=lambda g: g[0] - g[1])[:10]]}
+            "idle_gaps": [[label, 1e-6 * (b - a)] for label, (a, b)
+                          in zip(gap_labels(events, gaps, lo, hi), gaps)]}
 
 
 def report(cell, opts: dict, rounds: int) -> dict:
@@ -360,7 +467,7 @@ def report(cell, opts: dict, rounds: int) -> dict:
         window_s=first["window_s"], busy_s=first["busy_s"],
         device_ops=first["device_ops"], layer_s=layer_s, frames2=frames2,
         steps2=tr["stack_steps"], spans={}, counters={},
-        slice_loop_least_s=least)
+        slice_loop_least_s=least, program=first["program"])
     out["twins"] = {m["name"]: v for m in cell.per_layer
                     for v in [harness.load_module(
                         harness.BENCH / "metrics"

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 import attribution as at
+import program_spans as ps
 from conftest import BENCH
 
 LAYERS = at.load_layers(BENCH / "layers")
@@ -84,4 +85,4 @@ def test_launches_follow_their_correlation_to_the_innermost_layer(
     assert at.idle_gaps(dev, lo, hi) == [(0, 30), (35, 40), (60, 80),
                                          (84, 100)]
     assert at.top_device_ops(dev)[0] == ["k4_pass<1>", pytest.approx(20e-6)]
-    assert at.host_label(ev, 10) == at.WINDOW_SPAN
+    assert ps.gap_labels(ev, [(0, 30)], lo, hi) == [at.WINDOW_SPAN]
